@@ -11,9 +11,8 @@ its canonical tutorials train to reference AUC,
 * the ``exact`` variant trains the dense-update baseline (tables in
   params, full [V, D] Adagrad) at several seeds → the run-to-run noise
   band;
-* the ``fast`` variant trains the full fast path — lane-packed
-  residency + Pallas stream kernel + bucketed exchanges at default
-  ratios + bf16 wire + bf16 one-hot contracts;
+* the ``fast`` variant trains the full fast path — row-sparse table
+  updates + bucketed exchanges at default ratios + bf16 wire;
 * the ``fast_overflow`` variant shrinks the bucket/unique capacities so
   the exact overflow fallbacks FIRE (the harness verifies they must,
   from the data) and asserts quality is unharmed.
@@ -169,12 +168,10 @@ def run_variant(name, train_path, eval_path, *, tables, vocab, dim,
 
 
 FAST_OPTIONS = {
-    # The full fast path at DEFAULT ratios: stream kernel + lane packing
-    # are on by default on TPU; bf16 wire + bf16 one-hot contracts are
-    # the documented fast knobs.
+    # The full fast path at DEFAULT ratios, plus the bf16 wire for
+    # embeddings and gradients.
     'comm_wire_dtype': 'bfloat16',
     'comm_gradient_wire_dtype': 'bfloat16',
-    'emb_update_matmul_precision': 'default',
 }
 
 OVERFLOW_OPTIONS = {
@@ -209,11 +206,11 @@ def main():
   args = p.parse_args()
 
   if args.cpu:
-    os.environ['XLA_FLAGS'] = (os.environ.get('XLA_FLAGS', '')
-                               + f' --xla_force_host_platform_device_'
-                                 f'count={args.cpu}')
-    import jax
-    jax.config.update('jax_platforms', 'cpu')
+    from hybridbackend_tpu.framework.platform import force_host_devices
+    force_host_devices(args.cpu)
+  else:
+    from hybridbackend_tpu.framework.platform import use_gpu
+    use_gpu()
   import hybridbackend_tpu as hb
 
   os.makedirs(args.cache, exist_ok=True)

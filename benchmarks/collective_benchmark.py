@@ -2,7 +2,8 @@
 
 Port of ``/root/reference/hybridbackend/tensorflow/benchmarks/
 collective_benchmark.py`` (prints Rank/Collective/Topology/Device/Size/
-Throughput table, ``collective_benchmark.py:150-164``) to the TPU mesh.
+Throughput table, ``collective_benchmark.py:150-164``) to the JAX device
+mesh.
 
 Usage: python benchmarks/collective_benchmark.py [--sizes-mb 1 4 16 64]
        [--collectives allreduce alltoall allgather] [--steps 20] [--cpu N]
@@ -29,16 +30,15 @@ def main():
                           'reducescatter'])
   p.add_argument('--steps', type=int, default=20)
   p.add_argument('--cpu', type=int, default=0,
-                 help='simulate N CPU devices instead of TPU')
+                 help='simulate N CPU devices instead of the GPUs')
   args = p.parse_args()
 
   if args.cpu:
-    import os
-    os.environ['XLA_FLAGS'] = (os.environ.get('XLA_FLAGS', '')
-                               + f' --xla_force_host_platform_device_count'
-                                 f'={args.cpu}')
-    import jax
-    jax.config.update('jax_platforms', 'cpu')
+    from hybridbackend_tpu.framework.platform import force_host_devices
+    force_host_devices(args.cpu)
+  else:
+    from hybridbackend_tpu.framework.platform import use_gpu
+    use_gpu()
   import jax
   import jax.numpy as jnp
   from jax.sharding import PartitionSpec as P

@@ -127,8 +127,9 @@ def main():
   p.add_argument('--steps', type=int, default=100)
   p.add_argument('--threads', type=int, default=os.cpu_count() or 1)
   p.add_argument('--workdir',
-                 default=os.environ.get('HB_BENCH_CACHE',
-                                        '/root/.cache/hbtpu_bench'))
+                 default=os.environ.get('HB_BENCH_CACHE', os.path.join(
+                     os.path.dirname(os.path.dirname(
+                         os.path.abspath(__file__))), '.bench_cache')))
   args = p.parse_args()
   os.makedirs(args.workdir, exist_ok=True)
   {'parquet': bench_parquet, 'csv': bench_csv, 'dedup': bench_dedup,

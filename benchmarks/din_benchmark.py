@@ -4,7 +4,8 @@ BASELINE config #5: sequence-feature ranking with attention pooling of
 a variable-length user-behavior history (padded + masked on device).
 Measures the full train step — item-table lookup for candidate AND
 history (one stacked exchange), attention pooling, DNN, multi-optimizer
-update — with the loop inside jit (see train_benchmark.py for why).
+update — with ``--inner-steps`` steps inside one jitted ``lax.scan``
+(one dispatch and one readback per window).
 
 Usage: python benchmarks/din_benchmark.py [--batch 2048] [--dim 32]
        [--hist 64] [--vocab 1000000] [--inner-steps 20] [--cpu N]
@@ -30,8 +31,8 @@ def main():
   p.add_argument('--inner-steps', type=int, default=20)
   p.add_argument('--repeats', type=int, default=3)
   p.add_argument('--sparse', action='store_true',
-                 help='row-sparse table updates (Pallas stream kernel '
-                      'on TPU) via make_sparse_train_step raw mode')
+                 help='row-sparse table updates via '
+                      'make_sparse_train_step raw mode')
   p.add_argument('--sessions', type=int, default=0, metavar='S',
                  help='session-grouped history: [B, S, hist/S] + '
                       '2-level mask through din_session_apply (the '
@@ -45,6 +46,9 @@ def main():
   if args.cpu:
     from hybridbackend_tpu.framework.platform import force_host_devices
     force_host_devices(args.cpu)
+  else:
+    from hybridbackend_tpu.framework.platform import use_gpu
+    use_gpu()
   import jax
   import jax.numpy as jnp
   import numpy as np
@@ -199,7 +203,9 @@ def main():
       'batch': args.batch, 'hist': args.hist, 'dim': args.dim,
       'vocab': args.vocab, 'devices': ctx.world_size,
       'sparse': args.sparse, 'sessions': S,
-      'backend': jax.default_backend(),
+      'platform': jax.devices()[0].platform,
+      'device_kind': jax.devices()[0].device_kind,
+      'device_count': len(jax.devices()),
       'compile_s': round(compile_s, 1), 'final_loss': round(first, 4),
   }
   if args.json:

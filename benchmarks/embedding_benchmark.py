@@ -31,6 +31,9 @@ def main():
   if args.cpu:
     from hybridbackend_tpu.framework.platform import force_host_devices
     force_host_devices(args.cpu)
+  else:
+    from hybridbackend_tpu.framework.platform import use_gpu
+    use_gpu()
   import jax
   import jax.numpy as jnp
   import numpy as np

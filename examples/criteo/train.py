@@ -1,6 +1,6 @@
 """Criteo wide&deep training (stacked DCNv2 or DLRM).
 
-TPU-native port of the reference tutorial
+A JAX port of the reference tutorial
 (``/root/reference/docs/tutorial/ranking/criteo/train.py``): 13 dense +
 26 categorical Criteo columns, per-column sharded embedding tables
 (stacked into fused physical tables), DCNv2 or DLRM tower, Adagrad on
@@ -86,11 +86,11 @@ def main():
   args = p.parse_args()
 
   if args.cpu:
-    os.environ['XLA_FLAGS'] = (os.environ.get('XLA_FLAGS', '')
-                               + f' --xla_force_host_platform_device_'
-                                 f'count={args.cpu}')
-    import jax
-    jax.config.update('jax_platforms', 'cpu')
+    from hybridbackend_tpu.framework.platform import force_host_devices
+    force_host_devices(args.cpu)
+  else:
+    from hybridbackend_tpu.framework.platform import use_gpu
+    use_gpu()
   import jax
   import jax.numpy as jnp
   import optax

@@ -4,12 +4,12 @@ The reference's Keras path wraps a stock ``tf.keras.Model`` so it
 trains hybrid-parallel
 (``/root/reference/docs/tutorial/ranking/criteo/train_keras.py`` +
 ``hybridbackend/tensorflow/keras/model.py:462-850``). This is the
-TPU-native analogue: a stock flax tower wrapped by
+JAX analogue: a stock flax tower wrapped by
 ``wraps_flax_module`` — tables sharded/stacked/exchanged by the
 framework, the tower replicated, full
 compile/fit/evaluate/save_weights lifecycle.
 
-  python examples/criteo/train_flax.py --synthesize --steps 200
+  python examples/criteo/train_flax.py --synthesize --steps 200 [--cpu 8]
 """
 
 import os as _os
@@ -36,8 +36,16 @@ def main():
   p.add_argument('--batch-size', type=int, default=4096)
   p.add_argument('--dim', type=int, default=16)
   p.add_argument('--model-dir', default=None)
+  p.add_argument('--cpu', type=int, default=0,
+                 help='simulate N CPU devices')
   args = p.parse_args()
 
+  if args.cpu:
+    from hybridbackend_tpu.framework.platform import force_host_devices
+    force_host_devices(args.cpu)
+  else:
+    from hybridbackend_tpu.framework.platform import use_gpu
+    use_gpu()
   import flax.linen as nn
   import jax
   import jax.numpy as jnp

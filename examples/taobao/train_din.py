@@ -1,6 +1,6 @@
 """Taobao DIN training: ragged user-behavior sequences.
 
-TPU-native port of the reference tutorial
+A JAX port of the reference tutorial
 (``/root/reference/docs/tutorial/ranking/taobao/train_keras_din.py``):
 candidate-item embedding queries an attention pool over the user's
 variable-length click history (ragged Parquet list column → padded+mask),
@@ -82,8 +82,8 @@ def main():
   p.add_argument('--epochs', type=int, default=1)
   p.add_argument('--model-dir', default='')
   p.add_argument('--sparse', action='store_true',
-                 help='row-sparse table updates (Pallas stream kernel '
-                      'on TPU); uses SparseTrainer raw mode')
+                 help='row-sparse table updates; uses SparseTrainer '
+                      'raw mode')
   p.add_argument('--sessions', action='store_true',
                  help='session-grouped history: a nested-ragged '
                       'list<list<int64>> Parquet column padded to '
@@ -94,11 +94,11 @@ def main():
   args = p.parse_args()
 
   if args.cpu:
-    os.environ['XLA_FLAGS'] = (os.environ.get('XLA_FLAGS', '')
-                               + f' --xla_force_host_platform_device_'
-                                 f'count={args.cpu}')
-    import jax
-    jax.config.update('jax_platforms', 'cpu')
+    from hybridbackend_tpu.framework.platform import force_host_devices
+    force_host_devices(args.cpu)
+  else:
+    from hybridbackend_tpu.framework.platform import use_gpu
+    use_gpu()
   import jax
   import jax.numpy as jnp
   import optax

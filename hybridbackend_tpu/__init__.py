@@ -1,9 +1,9 @@
-"""hybridbackend_tpu: a TPU-native wide-and-deep recommender framework.
+"""hybridbackend_tpu: a wide-and-deep recommender framework in JAX.
 
-A ground-up JAX/XLA/Pallas re-design with the capabilities of
+A ground-up JAX/XLA re-design with the capabilities of
 DeepRec-AI/HybridBackend (reference at /root/reference): columnar
 Parquet/ORC ingest of ragged categorical features, row-sharded embedding
-tables with all-to-all / all-gather exchange over ICI/DCN, data-parallel
+tables with all-to-all / all-gather exchange between devices, data-parallel
 dense towers, in-training evaluation with globally exact metrics, and
 world-size-independent sharded checkpointing.
 """

@@ -1,13 +1,13 @@
 """Columnar schema: fields and ragged values.
 
-TPU-native re-design of the reference's DataFrame layer
+A JAX re-design of the reference's DataFrame layer
 (``/root/reference/hybridbackend/tensorflow/data/dataframe.py:52-779``):
 ``Field`` declares a column (name, dtype, ragged rank, inner shape,
 default value); ``Value`` carries a ragged batch as flat values plus
 nested row splits (the reference's ``DataFrame.Value`` namedtuple,
 ``dataframe.py:282-396``).
 
-The key TPU difference is the device format: XLA wants static shapes, so
+The key difference is the device format: XLA wants static shapes, so
 instead of ``tf.SparseTensor`` the canonical device layout of a ragged
 column is **padded-dense + mask** (``to_padded``), sized by a per-field
 ``max_len`` (bucketed growth keeps recompiles rare). ``to_sparse``-style
@@ -255,7 +255,7 @@ Batch = Dict[str, Column]
 def from_arrow(array) -> Column:
   """Convert a pyarrow (Chunked)Array column to ndarray or ragged Value.
 
-  This is the TPU-host analogue of the reference's zero-copy
+  This is the host-side analogue of the reference's zero-copy
   Arrow→Tensor conversion (``tensorflow/common/arrow.cc:44-97``): for
   primitive columns pyarrow hands back a NumPy view of the Arrow buffer
   without a copy (``zero_copy_only`` path); list columns decompose into

@@ -1,6 +1,6 @@
 """Deduplicated column storage and restoration.
 
-TPU-native parity with the reference's dedup transform
+Parity with the reference's dedup transform
 (``/root/reference/hybridbackend/tensorflow/data/deduplicate/dataset.py:29-67``
 and restore logic ``dataframe.py:300-396``): datasets may store a
 repeated column once per distinct entity plus an index column

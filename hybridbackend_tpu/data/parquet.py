@@ -1,10 +1,10 @@
-"""Columnar Parquet/ORC ingest for TPU hosts.
+"""Columnar Parquet/ORC ingest for accelerator hosts.
 
-TPU-native re-design of the reference's tabular dataset
+A JAX re-design of the reference's tabular dataset
 (``/root/reference/hybridbackend/tensorflow/data/tabular/``): the
 reference implements a C++ TF dataset op over Arrow with zero-copy
-string buffers (``dataset.cc:40-303``, ``parquet.cc``, ``orc.cc``). On a
-TPU host the input pipeline runs on CPU next to Python, and Arrow's own
+string buffers (``dataset.cc:40-303``, ``parquet.cc``, ``orc.cc``). Here
+the input pipeline runs on the host CPU next to Python, and Arrow's own
 C++ readers (via pyarrow, which releases the GIL) fill the same role;
 what this module adds is the framework semantics:
 

@@ -1,10 +1,10 @@
 """Asynchronous host→device prefetching.
 
-TPU-native re-design of the reference's prefetch buffer + H2D transfer
+A JAX re-design of the reference's prefetch buffer + H2D transfer
 ops (``/root/reference/hybridbackend/tensorflow/data/prefetch/prefetch.cc``
 and ``ops/transfer/*``): the reference runs taker threads that fill a
 C++ buffer resource and copies pinned host tensors to the GPU on a side
-stream. On TPU, host→device DMA is issued by ``jax.device_put`` (which
+stream. In JAX, host→device DMA is issued by ``jax.device_put`` (which
 is asynchronous), so the framework's job is pipelining: a background
 thread converts host batches into (globally sharded) device arrays a few
 steps ahead of consumption, overlapping Parquet decode + H2D with the
@@ -92,7 +92,7 @@ class DeviceIterator:
       # runtime. A producer-thread device_put interleaving with the
       # consumer thread's collective launches can order runtime work
       # differently across processes and wedge the job (observed on the
-      # CPU+Gloo backend; on TPU the PJRT client serializes, but the
+      # CPU+Gloo backend; some PJRT clients serialize, but the
       # single-owner rule is the portable contract). device_put dispatch
       # is asynchronous, so consumer-side placement still overlaps the
       # actual H2D DMA with the previous step's execution.

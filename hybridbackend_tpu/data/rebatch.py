@@ -1,6 +1,6 @@
 """Rebatching: resize reader micro-batches into exact training batches.
 
-TPU-native re-design of the reference's C++ ``RebatchBuffer``
+A JAX re-design of the reference's C++ ``RebatchBuffer``
 (``/root/reference/hybridbackend/tensorflow/data/rebatch/rebatch_buffer.cc``
 683 LoC + ``rebatch_dataset_v2.cc:46-410``): readers emit row-group-sized
 micro-batches; the rebatcher buffers row slices (dense and ragged) and

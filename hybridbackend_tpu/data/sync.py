@@ -1,6 +1,6 @@
 """Cross-replica out-of-range synchronization.
 
-TPU-native re-design of the reference's ``SyncReplicasDataset``
+A JAX re-design of the reference's ``SyncReplicasDataset``
 (``/root/reference/hybridbackend/tensorflow/data/sync/sync_replicas_dataset.cc:34-213``
 + ``hook.py:35-152``): every step, workers agree whether anyone (or
 everyone) has exhausted their data partition so all replicas stop
@@ -8,7 +8,7 @@ everyone) has exhausted their data partition so all replicas stop
 
 The reference allreduces an exhaustion count through a session hook and
 lets TF carry variable-shape final batches. XLA needs static shapes, so
-the TPU-native non-drop contract is **pad + per-row validity weights**:
+the static-shape non-drop contract is **pad + per-row validity weights**:
 
 * Every step the replicas exchange ``(has_data, rows)`` and agree on a
   global row count (the max across replicas).

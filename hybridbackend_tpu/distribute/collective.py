@@ -1,11 +1,11 @@
-"""Topology-aware collective communication for TPU meshes.
+"""Topology-aware collective communication over device meshes.
 
-TPU-native re-design of the reference's NCCL collective layer
+A JAX re-design of the reference's NCCL collective layer
 (``/root/reference/hybridbackend/tensorflow/distribute/collective.py:37-549``
 and ``distribute/nccl/*.cc``). Differences by design:
 
 * There is no communicator resource, no RPC id broadcast, no handle
-  linearization: XLA owns scheduling of collectives over ICI/DCN, and
+  linearization: XLA owns scheduling of collectives (NCCL on GPUs), and
   ``jax.distributed`` owns bootstrap. What remains is the *algebra*:
   allreduce / alltoall / alltoallv / allgather(v) / broadcast with
   topology selection (reference ``CollectiveTopology``,
@@ -143,7 +143,7 @@ def all_to_all_t(x, axes: AxisNames, split_axis: int = 0,
 def broadcast_t(x, axes: AxisNames, root: int = 0):
   """Broadcast ``root``'s value to every member along ``axes``.
 
-  Reference: ``HbNcclBroadcast`` (``nccl_broadcast.cc:31-90``). On TPU we
+  Reference: ``HbNcclBroadcast`` (``nccl_broadcast.cc:31-90``). Here we
   express it as a masked psum, which XLA lowers to an efficient broadcast.
   """
   axes_t = (axes,) if isinstance(axes, str) else tuple(axes)
@@ -184,7 +184,7 @@ def all_to_all_v_t(buckets: jax.Array, sizes: jax.Array, axes: AxisNames,
   The reference implements alltoallv by first alltoall-exchanging int32
   sizes, then moving exactly-sized payloads via paired ncclSend/ncclRecv
   (``nccl_alltoallv.cc:200-350``). XLA requires static shapes, so the
-  TPU-native protocol exchanges *fixed-capacity buckets*:
+  static-shape protocol exchanges *fixed-capacity buckets*:
 
   Args:
     buckets: ``[world, capacity, ...]`` — row ``i`` is the (padded)
@@ -291,7 +291,7 @@ def alltoallv(value: jax.Array, sizes: jax.Array,
               wire_dtype=None) -> Tuple[jax.Array, jax.Array]:
   """Variable-size all-to-all over static-capacity buckets.
 
-  Array-level lift of :func:`all_to_all_v_t` — the TPU form of the
+  Array-level lift of :func:`all_to_all_v_t` — the static-shape form of the
   reference ``hb.distribute.alltoall(value, sizes=...)``
   (``collective.py:485-549`` / ``nccl_alltoallv.cc:200-350``).
 

@@ -1,6 +1,6 @@
 """Static-shape ID partitioning for sharded-embedding exchange.
 
-TPU-native re-design of the reference partition kernels
+A JAX re-design of the reference partition kernels
 (``/root/reference/hybridbackend/tensorflow/distribute/partition/``):
 ``HbPartitionByModulo[N]`` (``partition_by_modulo_ops.cc:46-155``) buckets
 IDs by ``id % num_shards`` and returns shuffled ids + per-shard sizes +

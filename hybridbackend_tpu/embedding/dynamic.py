@@ -1,13 +1,13 @@
 """Dynamic (hash-table) embeddings: DeepRec EmbeddingVariable parity.
 
-TPU-native re-design of the reference's DeepRec EV backend
+A JAX re-design of the reference's DeepRec EV backend
 (``/root/reference/hybridbackend/tensorflow/embedding/deeprecev.py:29-65``):
 DeepRec's ``get_embedding_variable`` is a growing hash table keyed by
 raw (unhashed, unbounded) feature ids; the reference row-shards it like
 a dense table but skips the ``ids // num_shards`` index division
 (``isdynamic=True``).
 
-On TPU the device table must be static-shaped, so the dynamic part —
+Under XLA the device table must be static-shaped, so the dynamic part —
 the id→row hash map — lives on the host (the input pipeline touches
 every id there anyway; this is also where DeepRec keeps its hash map,
 just on the trainer CPU). Rows are assigned on first touch, with an
@@ -34,7 +34,7 @@ class IdMapper:
   """Host-side growing map from raw int64 ids to dense table rows.
 
   The id→row resolution is the reference's device slab-hash probe
-  (``lookup_functors.cu.cc:40-170``) relocated to the TPU host input
+  (``lookup_functors.cu.cc:40-170``) relocated to the host input
   path: it runs in the native open-addressing map
   (:class:`hybridbackend_tpu.native.NativeIdMap`, C++ over the C ABI,
   thread-parallel read probes — ~10 ns/id insert, ~1 ns/id bulk probe)

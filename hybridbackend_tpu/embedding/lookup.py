@@ -1,10 +1,10 @@
 """Sharded embedding lookup strategies.
 
-TPU-native re-design of the reference's sharded-lookup rewriting
+A JAX re-design of the reference's sharded-lookup rewriting
 (``/root/reference/hybridbackend/tensorflow/embedding/sharding.py:168-278``).
 The reference routes lookups as: modulo-partition ids → NCCL alltoallv →
 unique → local gather → alltoallv embeddings back → stitch, with a
-hierarchical (intra-node then inter-node) two-stage variant. On TPU the
+hierarchical (intra-node then inter-node) two-stage variant. Here the
 same exchange is expressed with static shapes under ``shard_map``; three
 strategies are provided (option ``emb_lookup_strategy``):
 
@@ -134,10 +134,7 @@ def lookup(table: jax.Array, ids: jax.Array, config: TableConfig,
                        dim=p * config.dim, shuffle_ids=False,
                        lane_pack=False, initializer=None)
     # Flatten multi-dim id batches ([B, K] stacked lookups) before the
-    # lane select: the broadcast-multiply-reduce over a 4-D
-    # [B, K, p, d] view measured 6× slower than the same select over
-    # the flat [B·K, p, d] view on v5e (7.9 vs 4.9 ms for the flagship
-    # 8192×26 lookup — the K-sized second-minor dim tiles badly).
+    # lane select, so the select runs over a flat [B·K, p, d] view.
     frows = rows.reshape(-1)
     prows = jnp.where(frows >= 0, frows // p, frows)
     wide = lookup(table, prows, pcfg, ctx=ctx, strategy=strategy)
@@ -307,7 +304,7 @@ def _lookup_alltoall(shard, ids_local, *, axes, world, rows_per_shard,
                      wire=None, cap=None, fallback=True):
   """Bucketed-partition → a2a ids → local gather → a2a embeddings back.
 
-  Literal TPU translation of the reference exchange
+  Static-shape translation of the reference exchange
   (``sharding.py:171-205`` / ``nccl_alltoallv.cc:200-350``). With
   ``cap`` set (``emb_lookup_bucket_ratio``), each device ships only
   ``[W, cap]`` ids and receives ``[W, cap, D]`` embeddings — a

@@ -3,8 +3,8 @@
 The reference shards every table above a size threshold
 (``/root/reference/hybridbackend/tensorflow/embedding/sharding.py:67-75``);
 research systems (AutoShard, RecShard, DreamShard — see PAPERS.md) show
-per-table *cost-model* decisions beat one threshold. This module is the
-TPU-native form: an analytic per-table model of bytes moved per step and
+per-table *cost-model* decisions beat one threshold. This module is
+an analytic per-table model of bytes moved per step and
 HBM held per device for each placement, returning a plan that routes
 through the per-table DictOption scopes
 (:meth:`hybridbackend_tpu.framework.options.Options.get_for`).
@@ -33,14 +33,15 @@ factor):
   (the reference alltoallv's whole point,
   ``nccl_alltoallv.cc:200-350``). The hierarchical two-hop form moves
   the SAME per-device bytes (HLO-measured); its win is that hop-0
-  rides ICI.
+  stays inside a host.
 * column-sharded — HBM ``V*D*4/W``; forward ``f*B*4`` ids +
   ``f*B*D*4`` embedding alltoall; sensible for very large ``D``
   where per-row slices still fill lanes.
 
-The latency floor ``HOP`` cannot be calibrated on a CPU mesh: it is
-derived from TPU ICI characteristics (~1 us/hop at ~45 GB/s per link
-≈ 45 KB of bytes-equivalent per collective).
+The latency floor ``HOP`` cannot be calibrated on a CPU mesh. It is an
+assumption from the H100 data sheet, not a measurement: ~1 us per
+collective hop at NVLink's 450 GB/s each way ≈ 450 KB of
+bytes-equivalent per collective.
 
 The plan is a *starting point* measured in bytes — profile and override
 (every knob remains a scoped option).
@@ -166,7 +167,7 @@ def plan_sharding(configs: Sequence,
     bucket_slack: alltoall bucket capacity slack (matches
       ``emb_update_bucket_ratio``).
     column_min_dim: consider column sharding only at/above this dim
-      (below it, per-device lane slices underfill the VPU/MXU).
+      (below it, per-device row slices are too narrow to pay).
 
   Returns ``{table_name: TablePlan}``; apply with
   :func:`plan_scope_options`.
@@ -177,10 +178,11 @@ def plan_sharding(configs: Sequence,
   plans: Dict[str, TablePlan] = {}
   replicated_budget = hbm_budget_bytes
   # Each collective hop pays a latency floor independent of payload —
-  # modeled as bytes-equivalent: ~1 us of ICI hop latency at ~45 GB/s
-  # per v5e link ≈ 45 KB. Replication's local gather has one backward
-  # collective; the exchanges pay 3-6 hops.
-  HOP = 45 * 1024
+  # modeled as bytes-equivalent. Data-sheet assumption, not measured:
+  # ~1 us per hop at the H100's NVLink rate of 450 GB/s each way
+  # ≈ 450 KB. Replication's local gather has one backward collective;
+  # the exchanges pay 3-6 hops.
+  HOP = 450_000
   # A byte HELD costs a small fraction of a byte MOVED per step:
   # keeps replication from winning on comm alone for giant tables even
   # without an explicit budget.

@@ -1,6 +1,6 @@
 """int8 quantized embedding tables (serving-time residency format).
 
-Beyond-reference, TPU-idiomatic: a served embedding table rarely needs
+Beyond the reference: a served embedding table rarely needs
 f32 rows — per-row symmetric int8 keeps prediction drift at the
 quantization noise floor while cutting table HBM residency and bundle
 size ~4×. The reference serves f32 tables only
@@ -9,15 +9,13 @@ its GPU-cache layer solves the same capacity problem dynamically
 (``embedding/service.py:50-324``) — quantization is the static,
 zero-infrastructure alternative for inference.
 
-Residency (round 4): narrow int8 tables store LANE-PACKED — ``[V, d]``
-as ``[V/p, p·d = 128]`` (the same format the f32 training tables use,
-``TableConfig.pack_factor``). A d<128 row wastes 128/d of every memory
-tile; packing makes the gather fetch full tiles, and the dequantize +
-lane-select fuse into ONE wide einsum: the per-row scale rides the lane
-one-hot (``out[n] = Σ_k (1[k = lane(n)]·scale(n)) · qrow[n, k·d:]``),
-so nothing but the final [N, d] output is narrow. This erased the
-round-3 1.55× int8 gather penalty (the dequant multiply used to run as
-a separate XLA pass over narrow intermediates).
+Residency: narrow int8 tables store LANE-PACKED — ``[V, d]`` as
+``[V/p, p·d = 128]`` (the format ``emb_lane_pack='on'`` gives f32
+training tables, ``TableConfig.pack_factor``). The gather fetches
+128-wide rows, and the dequantize + lane-select fuse into ONE wide
+einsum: the per-row scale rides the lane one-hot
+(``out[n] = Σ_k (1[k = lane(n)]·scale(n)) · qrow[n, k·d:]``), so
+nothing but the final [N, d] output is narrow.
 
 Format: ``QuantizedTable(q: int8, scale: f32 [V], pack, dim)`` with
 ``row v = q-slice(v) · scale[v]`` and ``scale = max|row| / 127``
@@ -201,17 +199,8 @@ def lookup_quantized(qt: QuantizedTable, ids: jax.Array, config,
   n = flat.shape[0]
   # Wide f32 cast on the 2-D [n, 128] form, then a broadcast-multiply-
   # reduce select with the per-row scale folded into the lane one-hot.
-  # Measured fastest of TWELVE formulations on v5e at the flagship
-  # shape (5.80 ms; the losers span 5.91–382 ms across XLA
-  # narrow-domain selects, unrolled-slice folds, int32 word selects,
-  # (1,16)-slice gathers, and five Pallas per-row-operand encodings —
-  # full table in docs/benchmarks.md). The raw packed take is
-  # dtype-independent at ~4.35 ms (row-rate-bound: int8 = bf16 = f32),
-  # so the residual over the floor is the widening pass, and TPU layout
-  # constraints on per-row lane/scale operands put a ≥1.3 ms tax on
-  # every fused-kernel alternative (Pallas structural floor with a
-  # CONSTANT lane: 4.94 ms). gather_probe --cases take int8 int8p
-  # int8p2 int8p3 int8p4 int8p5 int8p6 int8p7 reproduces the XLA rows.
+  # Its speed on the GPU against an unpacked int8 gather is not
+  # measured.
   wide = qrows.astype(jnp.float32)
   sc = jnp.take(qt.scale, jnp.clip(flat, 0, v - 1), axis=0)
   sc = jnp.where(fvalid, sc, 0.0)

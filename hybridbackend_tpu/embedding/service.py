@@ -1,12 +1,12 @@
 """HBM-cached embeddings over host-DRAM tables (EmbeddingService parity).
 
-TPU-native re-design of the reference's GPU-cached ``EmbeddingService``
+A JAX re-design of the reference's GPU-cached ``EmbeddingService``
 (``/root/reference/hybridbackend/tensorflow/embedding/service.py:50-324``
 + WCWS slab-hash probe kernel ``lookup_functors.cu.cc:40-170``): tables
 too large for device memory live in host DRAM (or any KV store behind
 :class:`Storage`); the device holds a fixed-capacity row cache. The
 reference probes a GPU hash table with a warp-cooperative kernel and
-evicts by staleness top-k; on TPU the id→slot map is the native
+evicts by staleness top-k; here the id→slot map is the native
 open-addressing hash on the host input path
 (:class:`hybridbackend_tpu.native.NativeIdMap` — the input pipeline
 already touches every id there), so the device only ever sees dense slot

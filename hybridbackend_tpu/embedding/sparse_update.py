@@ -1,6 +1,6 @@
 """Row-sparse embedding-table updates.
 
-TPU-native equivalent of the reference's sparse gradient path: sharded
+The JAX form of the reference's sparse gradient path: sharded
 embedding gradients arrive as ``IndexedSlices`` and are applied directly
 to the touched rows (``/root/reference/hybridbackend/tensorflow/training/
 gradient.py:197-207`` — sharded grads bypass aggregation; the optimizer's
@@ -8,8 +8,7 @@ sparse ``apply`` touches only those rows).
 
 With plain autodiff + optax, a table gradient materializes as a dense
 ``[V, D]`` array and the optimizer update reads+writes the WHOLE table
-every step — measured 15.9 ms/step for a 512 MB table on v5e vs 8.3 ms
-for the row-sparse path below (2x, growing with table size).
+every step; the row-sparse path below moves only the touched rows.
 
 The entry point is :func:`sparse_adagrad_apply` (and SGD variant): given
 the batch's ids and the gradient w.r.t. the looked-up embeddings
@@ -21,8 +20,7 @@ scatter).
 
 from __future__ import annotations
 
-import functools
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -35,59 +33,11 @@ from hybridbackend_tpu.framework.context import Context
 from hybridbackend_tpu.framework.options import OPTIONS
 
 OPTIONS.register(
-    'emb_update_impl', 'auto', env='HB_EMB_UPDATE_IMPL',
-    doc="Sparse table update implementation: 'xla' (scatter ops), "
-        "'stream' (Pallas table-streaming one-hot-matmul kernel — "
-        "measured 2.3x the XLA scatters on v5e), or 'auto' "
-        "(stream on TPU, xla elsewhere).")
-OPTIONS.register(
-    'emb_update_block_rows', 0, env='HB_EMB_UPDATE_BLOCK_ROWS',
-    doc='Table rows per grid step of the stream update kernel; 0 = '
-        'kernel default. The one-hot compare cost scales with '
-        'block_rows while streaming overhead shrinks with it (1024 '
-        'measured 12% faster than 2048 at 1M x 32 / 133k updates).')
-OPTIONS.register(
-    'emb_update_matmul_precision', 'highest',
-    env='HB_EMB_UPDATE_MATMUL_PRECISION',
-    doc="MXU precision of the stream kernel's one-hot matmul: "
-        "'highest' (exact f32 row totals, the default) or 'default' "
-        '(bf16 passes — measured 15% faster standalone at [1M, 32] / '
-        '133k updates on v5e; per-row gradient totals rounded to '
-        'bf16 precision).')
-OPTIONS.register(
-    'emb_update_chunk', 0, env='HB_EMB_UPDATE_CHUNK',
-    doc='Update rows per inner one-hot matmul iteration of the stream '
-        'kernel (DMA granule when emb_update_dma_chunk is 0). 0 = '
-        'kernel default (128).')
-OPTIONS.register(
-    'emb_update_window_rows', -1, env='HB_EMB_UPDATE_WINDOW_ROWS',
-    doc='One-hot window of the stream update kernel (rows): sorted '
-        'chunks span narrow row ranges, so the one-hot matmul runs '
-        'against a dynamic-offset window this many rows tall instead '
-        'of the whole block (block_rows/window fewer MXU ops; '
-        'wider-spanning chunks take the exact full-block fallback). '
-        '-1 = kernel default (256); 0 = always full block.')
-OPTIONS.register(
-    'emb_update_dma_chunk', 0, env='HB_EMB_UPDATE_DMA_CHUNK',
-    doc='Update-list transfer granule of the stream kernel (rows per '
-        'double-buffered DMA, a chunk multiple): decouples HBM '
-        'transfer size from the one-hot matmul granularity. 0 = '
-        'single-buffered per-chunk DMAs (the default).')
-OPTIONS.register(
-    'emb_update_touched_blocks', 0, env='HB_EMB_UPDATE_TOUCHED_BLOCKS',
-    doc='Sparse-grid mode of the stream update kernel: stream ONLY the '
-        'touched table blocks (at most this many; more distinct touched '
-        'blocks falls back to the full stream via lax.cond — lossless). '
-        '0 = auto (on when the update count is below the block count, '
-        'with cap = update count — cannot overflow; measured 4.4x at '
-        '[4.2M, 32] / 2048 updates on v5e); -1 = off; > 0 = explicit '
-        'cap (~1.2x the expected distinct touched blocks).')
-OPTIONS.register(
     'emb_update_exchange', 'alltoall', env='HB_EMB_UPDATE_EXCHANGE',
     doc="Gradient-return exchange for row-sharded tables: 'alltoall' "
         "(default; bucketed owner-routed exchange — bytes per device "
-        '∝ its local batch, the TPU form of the reference reverse '
-        "alltoallv, collective.py:326-350) or 'allgather' (every "
+        '∝ its local batch, the static-shape form of the reference '
+        "reverse alltoallv, collective.py:326-350) or 'allgather' (every "
         'device receives the full [W*b, D] payload — W× the wire '
         'bytes, only sensible for tiny batches).')
 OPTIONS.register(
@@ -98,42 +48,6 @@ OPTIONS.register(
         'the mean, so 2.0 has huge headroom; overflow never corrupts — '
         'see emb_update_overflow_fallback.')
 OPTIONS.register(
-    'emb_update_segment_sort', False, env='HB_EMB_UPDATE_SEGMENT_SORT',
-    doc='Sort stacked update lists per member segment (K batched '
-        'argsorts of B) instead of one global argsort of K·B before the '
-        'stream kernel. Exact either way. Measured on one v5e chip at '
-        'the flagship shape (26×8192 ids into [2.6M, 16]): the segment '
-        'form LOSES — 12.9 vs 8.3 ms for the full update path and ~6× '
-        'the compile time (XLA fuses the single big argsort better than '
-        '26 strided slice+sort+concat chains) — so the default is off; '
-        'kept as an option for shapes/backends where K·B is too large '
-        'to sort flat.')
-OPTIONS.register(
-    'emb_update_split_dense', 'off', env='HB_EMB_UPDATE_SPLIT_DENSE',
-    doc="Dense-split form of the stream update: a Pallas kernel writes "
-        'only the dense per-row gradient totals (one streamed operand), '
-        'and the optimizer apply runs as a fused XLA elementwise pass '
-        'over (table, slots, gsum). Bit-identical to the fused kernel. '
-        "Measured SLOWER on one v5e chip at the flagship packed shape "
-        '(stream_bw_probe, canonical run in docs/benchmarks.md; ~4% '
-        'run-to-run spread: gsum kernel ~3.0 ms + 5-transfer XLA apply '
-        '2.49 ms ≈ 5.5 ms vs ~4.1 ms fused in-step): the fused kernel '
-        'overlaps the one-hot scatter MXU work with the table stream, '
-        "and XLA's elementwise rate (342 GB/s) is only ~1.15x the "
-        "kernel's pass-through (297 GB/s) — not enough to buy back the "
-        "extra dense gsum pass. Default 'off'; 'auto' enables it in "
-        'the dense-touch regime (touched-blocks grid inactive, 128-lane '
-        "physical rows) for future chips / A-B probes; 'on' forces. "
-        'Applies ONLY to the unstacked Adagrad stream path '
-        '(_stream_adagrad); the stacked presorted path and the SGD/Adam '
-        'streams always use the fused kernels.')
-OPTIONS.register(
-    'emb_update_gsum_block_rows', 0, env='HB_EMB_UPDATE_GSUM_BLOCK_ROWS',
-    doc='Output-block rows per grid step of the dense-split gsum '
-        'kernel; 0 = kernel default (8192 — one streamed operand '
-        'leaves VMEM room for much larger blocks than the fused '
-        "kernel's 2048).")
-OPTIONS.register(
     'emb_update_overflow_fallback', True,
     env='HB_EMB_UPDATE_OVERFLOW_FALLBACK',
     doc='When an alltoall update bucket overflows, re-route that step '
@@ -142,217 +56,11 @@ OPTIONS.register(
         'Disabling drops overflow gradients — only for benchmarking.')
 
 
-def _use_stream(impl: str) -> bool:
-  if impl == 'auto':
-    impl = OPTIONS['emb_update_impl']
-  if impl == 'auto':
-    return jax.default_backend() == 'tpu'
-  return impl == 'stream'
-
-
 def _valid_rows(rows, ids, config: TableConfig):
   """Same logical-id validity contract as ``lookup``: out-of-vocab
   positive ids must not resolve to a real (mixed or padding) row — for
   LazyAdam even a zero-gradient touch decays a row's moments."""
   return jnp.where((ids >= 0) & (ids < config.vocab_size), rows, -1)
-
-
-_WARNED_NODEDUP = False
-
-
-def _warn_nodedup_ignored():
-  """dedup=False has no effect on the stream kernel (it always combines
-  duplicates exactly inside its one-hot matmul); tell the caller once."""
-  global _WARNED_NODEDUP
-  if not _WARNED_NODEDUP:
-    _WARNED_NODEDUP = True
-    import logging
-    logging.getLogger('hybridbackend_tpu').warning(
-        'dedup=False requested but the stream update kernel is active '
-        '(emb_update_impl=%s): duplicates are always combined into exact '
-        "row totals; force emb_update_impl='xla' for TF per-occurrence "
-        'accumulation semantics.', OPTIONS['emb_update_impl'])
-
-
-
-
-def _touched_blocks_auto(vocab: int, n_updates: int,
-                         block_rows) -> int:
-  """Resolve the touched-blocks cap: explicit option value, or auto —
-  enabled whenever the update count is below the block count (then a
-  cap of n_updates can never overflow, so the sparse grid is a pure
-  streaming win)."""
-  opt = int(OPTIONS['emb_update_touched_blocks'])
-  if opt > 0:
-    return opt
-  if opt < 0:
-    return 0
-  from hybridbackend_tpu.ops.pallas.scatter import _BLOCK_ROWS
-  br = int(block_rows or _BLOCK_ROWS)
-  nblocks = -(-vocab // br)
-  return n_updates if nblocks > n_updates else 0
-
-
-def _stream_kwargs(table, rows, packs: bool = True):
-  """Shared option plumbing for the three stream kernels (block size,
-  matmul precision, touched-blocks sparse grid).
-
-  ``packs``: whether the consuming kernel lane-packs narrow tables
-  internally (add/adagrad do; the LazyAdam kernel streams unpacked) —
-  the updates-vs-blocks auto crossover must count the blocks the kernel
-  will actually stream."""
-  from hybridbackend_tpu.ops.pallas.scatter import _pack_factor
-  kwargs = {}
-  if OPTIONS['emb_update_block_rows']:
-    kwargs['block_rows'] = int(OPTIONS['emb_update_block_rows'])
-  if OPTIONS['emb_update_matmul_precision'] != 'highest':
-    kwargs['precision'] = OPTIONS['emb_update_matmul_precision']
-  if OPTIONS['emb_update_dma_chunk']:
-    kwargs['dma_chunk'] = int(OPTIONS['emb_update_dma_chunk'])
-  if OPTIONS['emb_update_chunk']:
-    kwargs['chunk'] = int(OPTIONS['emb_update_chunk'])
-  if int(OPTIONS['emb_update_window_rows']) >= 0:
-    kwargs['window_rows'] = int(OPTIONS['emb_update_window_rows'])
-  v, d = table.shape
-  streamed_vocab = v // _pack_factor(v, d) if packs else v
-  tb = _touched_blocks_auto(streamed_vocab, rows.shape[0],
-                            kwargs.get('block_rows'))
-  if tb:
-    kwargs['touched_blocks'] = tb
-  return kwargs
-
-
-def _split_dense(table, kwargs) -> bool:
-  """Dense-split decision (option ``emb_update_split_dense``): route
-  the bulk table/slot bytes through a fused XLA elementwise apply and
-  keep only the irregular scatter (dense gsum) in Pallas. Measured
-  SLOWER than the fused kernel on v5e (see the option doc /
-  stream_bw_probe) — default off; ``'auto'`` opts in for the
-  dense-touch regime (touched-blocks grid inactive). Requires 128-lane
-  physical rows (lane-packed or naturally wide)."""
-  mode = str(OPTIONS['emb_update_split_dense'])
-  if mode == 'off' or table.shape[1] % 128:
-    return False
-  if mode == 'on':
-    return True
-  return 'touched_blocks' not in kwargs
-
-
-def _gsum_kwargs(kwargs):
-  """Kernel kwargs for the dense-split gsum kernel: the touched grid
-  never applies (the output must be fully written) and the block size
-  has its own default/option (one streamed operand fits much larger
-  blocks)."""
-  gkw = {k: v for k, v in kwargs.items()
-         if k not in ('touched_blocks', 'block_rows')}
-  if OPTIONS['emb_update_gsum_block_rows']:
-    gkw['block_rows'] = int(OPTIONS['emb_update_gsum_block_rows'])
-  return gkw
-
-
-def _stream_adagrad(table, acc, rows, g, lr, eps, pack_p: int = 1):
-  """Sort + fused Pallas Adagrad (exact row-total semantics). ``lr``
-  may be a traced scalar (e.g. a schedule value).
-
-  ``pack_p > 1``: ``rows``/``g`` arrive in the LOGICAL narrow geometry
-  of a lane-packed table; expand FIRST, then sort. Sorting narrow and
-  expanding after moves 8x fewer gather bytes on paper, but measured
-  SLOWER end-to-end on one v5e chip (update_path_probe: expand→sort
-  6.83 ms vs sort→expand 8.29 ms at [2.6M, 16]/213k — XLA fuses the
-  lane one-hot into the sort's reorder gather, so the narrow order
-  just adds a second materialized pass)."""
-  from hybridbackend_tpu.ops.pallas.scatter import (
-      _pack_expand, adagrad_update_sorted)
-  if pack_p > 1:
-    rows, g = _pack_expand(rows, g.astype(table.dtype), pack_p)
-  order = jnp.argsort(rows)
-  rows = rows[order]
-  g = g[order]
-  interpret = jax.default_backend() != 'tpu'
-  kwargs = _stream_kwargs(table, rows)
-  if _split_dense(table, kwargs):
-    from hybridbackend_tpu.ops.pallas.scatter import gsum_dense_sorted
-    gsum = gsum_dense_sorted(rows, g.astype(table.dtype),
-                             table.shape[0], interpret=interpret,
-                             **_gsum_kwargs(kwargs))
-    gsum = gsum[:, :table.shape[1]]
-    # Identical math to the fused kernel's adagrad tail — gsum is the
-    # same _split_dots row totals, so the paths are bit-identical.
-    a = acc.astype(jnp.float32) + gsum * gsum
-    new_table = (table - lr * gsum / (jnp.sqrt(a) + eps)
-                 ).astype(table.dtype)
-    return new_table, a.astype(acc.dtype)
-  return adagrad_update_sorted(table, acc, rows, g,
-                               lr=lr, eps=float(eps),
-                               interpret=interpret, **kwargs)
-
-
-def _segment_sorted(ids2d, demb, segments):
-  """Per-member-segment sort of a stacked ``[B, K]`` id block.
-
-  A stacked update list is member segments with disjoint ASCENDING row
-  ranges (``stack.offsets``), so concatenating per-segment sorted runs
-  is globally sorted — and K batched argsorts of B keys are markedly
-  cheaper than one argsort of K·B (bitonic stage count grows with
-  log²n, and every stage touches all the data).
-
-  Args:
-    ids2d: ``[B, K]`` stacked ids (``pack_ids`` layout).
-    demb: ``[B, K, D]`` per-id gradients.
-    segments: static ``((col0, col1, row_hi), ...)`` from
-      :func:`~hybridbackend_tpu.embedding.stack.update_segments`,
-      ranges ascending in layout order.
-
-  Returns ``(rows [B·K], block_ids [B·K], g [B·K, D])``: ``rows`` is
-  per-segment sorted with ``-1`` holes at invalid lanes (the stream
-  kernel drops them), ``block_ids`` replaces those holes with the
-  segment's ``row_hi`` so the block-range searchsorted key stays
-  globally non-decreasing.
-  """
-  d = demb.shape[-1]
-  nseg = len(segments)
-  rows_parts = [None] * nseg
-  key_parts = [None] * nseg
-  g_parts = [None] * nseg
-  by_width: Dict[int, list] = {}
-  for i, (c0, c1, _hi) in enumerate(segments):
-    by_width.setdefault(c1 - c0, []).append(i)
-  for w, idxs in by_width.items():
-    ids_g = jnp.stack([ids2d[:, segments[i][0]:segments[i][1]]
-                       .reshape(-1) for i in idxs])          # [n, w·B]
-    g_g = jnp.stack([demb[:, segments[i][0]:segments[i][1]]
-                     .reshape(-1, d) for i in idxs])         # [n, w·B, D]
-    hi = jnp.asarray([segments[i][2] for i in idxs],
-                     ids_g.dtype)[:, None]
-    valid = (ids_g >= 0) & (ids_g < hi)
-    keys = jnp.where(valid, ids_g, hi)
-    order = jnp.argsort(keys, axis=-1)
-    skeys = jnp.take_along_axis(keys, order, axis=-1)
-    srows = jnp.take_along_axis(jnp.where(valid, ids_g, -1), order,
-                                axis=-1)
-    sg = jnp.take_along_axis(g_g, order[..., None], axis=1)
-    for j, i in enumerate(idxs):
-      rows_parts[i], key_parts[i], g_parts[i] = srows[j], skeys[j], sg[j]
-  return (jnp.concatenate(rows_parts), jnp.concatenate(key_parts),
-          jnp.concatenate(g_parts))
-
-
-def _stream_adagrad_presorted(table, acc, rows, block_ids, g, lr, eps,
-                              pack_p: int = 1):
-  """:func:`_stream_adagrad` minus the global argsort: ``rows`` arrive
-  per-segment sorted (with ``-1`` holes) and ``block_ids`` carries the
-  monotone searchsorted key (see :func:`_segment_sorted`)."""
-  from hybridbackend_tpu.ops.pallas.scatter import (
-      _pack_expand, _pack_ids, adagrad_update_sorted)
-  if pack_p > 1:
-    rows, g = _pack_expand(rows, g.astype(table.dtype), pack_p)
-    block_ids = _pack_ids(block_ids, pack_p)
-  interpret = jax.default_backend() != 'tpu'
-  kwargs = _stream_kwargs(table, rows)
-  return adagrad_update_sorted(table, acc, rows, g,
-                               lr=lr, eps=float(eps),
-                               block_ids=block_ids,
-                               interpret=interpret, **kwargs)
 
 
 class SparseOptState(NamedTuple):
@@ -365,7 +73,7 @@ class SparseOptState(NamedTuple):
 #
 # The reference returns sparse gradients to owner shards with a REVERSE
 # alltoallv — bytes ∝ the local batch (collective.py:326-350,
-# sharding.py:171-205). The TPU-native form below: locally combine
+# sharding.py:171-205). The static-shape form below: locally combine
 # duplicate rows, bucket (row, grad-total) pairs by owner shard with a
 # static capacity, exchange via all_to_all_v_t, and let the owner apply
 # the update. The legacy allgather route ships the full [W*b, D] payload
@@ -606,6 +314,20 @@ def _sgd_rows(table, rows, gsum, lr):
   return table.at[rows].add(-lr * gsum, mode='drop')
 
 
+def _pack_expand(rows: jax.Array, updates: jax.Array, p: int
+                 ) -> Tuple[jax.Array, jax.Array]:
+  """Packed row ``r//p`` of each logical row ``r``, and its ``[N, d]``
+  update placed in lane slice ``(r%p)·d`` of an ``[N, p·d]`` array.
+  Negative (invalid) rows stay negative."""
+  n, d = updates.shape
+  prow = jnp.where(rows >= 0, rows // p, rows)
+  lane = jnp.where(rows >= 0, (rows % p).astype(jnp.int32), 0)
+  oh = (lane[:, None] == jnp.arange(p, dtype=jnp.int32)[None, :]
+        ).astype(updates.dtype)
+  upd = (oh[:, :, None] * updates[:, None, :]).reshape(n, p * d)
+  return prow, upd
+
+
 def _maybe_lane_pack(rows_b, demb, config: TableConfig, table, p: int):
   """Map (logical rows, [N, d] grads) into a lane-packed table's space:
   packed rows ``r//p`` and grads expanded into lane slice ``(r%p)·d``
@@ -618,7 +340,6 @@ def _maybe_lane_pack(rows_b, demb, config: TableConfig, table, p: int):
   if p <= 1:
     return rows_b, demb, config
   import dataclasses as _dc
-  from hybridbackend_tpu.ops.pallas.scatter import _pack_expand
   rows_b, demb = _pack_expand(rows_b, demb, p)
   pcfg = _dc.replace(config, vocab_size=int(table.shape[0]),
                      dim=p * config.dim, shuffle_ids=False,
@@ -631,10 +352,7 @@ def sparse_adagrad_apply(table: jax.Array, state: SparseOptState,
                          config: TableConfig, lr: float,
                          eps: float = 1e-7,
                          dedup: bool = True,
-                         impl: str = 'auto',
-                         ctx: Optional[Context] = None,
-                         segments: Optional[Tuple[Tuple[int, int, int],
-                                                  ...]] = None
+                         ctx: Optional[Context] = None
                          ) -> Tuple[jax.Array, SparseOptState]:
   """Adagrad on touched rows only.
 
@@ -645,64 +363,16 @@ def sparse_adagrad_apply(table: jax.Array, state: SparseOptState,
     dedup: combine duplicate ids before squaring (exact Adagrad). With
       ``False``, duplicates accumulate per-occurrence squares (TF
       ``SparseApplyAdagrad`` semantics) and the sort-based ``unique`` is
-      skipped — markedly faster for large batches. Ignored by the
-      stream impl, which always combines exactly (free in its matmul).
-    impl: 'xla' | 'stream' | 'auto' (see option ``emb_update_impl``).
-    segments: static stacked-id segment bounds from
-      :func:`~hybridbackend_tpu.embedding.stack.update_segments` when
-      ``ids`` is a ``pack_ids`` ``[B, K]`` block. Enables the
-      per-segment sort (K batched argsorts of B instead of one of
-      K·B) on the replicated single-process stream path; ignored —
-      exactness unchanged — whenever that path does not apply.
+      skipped.
   """
   ctx = ctx or Context.get()
-  stream = _use_stream(impl)
-  if not dedup and stream:
-    _warn_nodedup_ignored()
-  if (segments is not None and stream and ids.ndim == 2
-      and not config.shuffle_ids and not config.should_shard(ctx)):
-    demb3 = demb.reshape(*ids.shape, demb.shape[-1]).astype(table.dtype)
-    if ctx.world_size > 1:
-      # Replicated table, multi-device batch: gather the 2D id block
-      # and 3D grads (same wire bytes as the flat path), THEN segment-
-      # sort the global block — per-device pre-sorts would not
-      # concatenate into a sorted list.
-      b = ids.shape[0]
-      if b % ctx.world_size:
-        pb = -(-b // ctx.world_size) * ctx.world_size
-        ids = jnp.concatenate(
-            [ids, jnp.full((pb - b,) + ids.shape[1:], -1, ids.dtype)])
-        demb3 = jnp.concatenate(
-            [demb3, jnp.zeros((pb - b,) + demb3.shape[1:], demb3.dtype)])
-
-      def gather2(i, g):
-        return (jax.lax.all_gather(i, ctx.data_axes, tiled=True),
-                jax.lax.all_gather(g, ctx.data_axes, tiled=True))
-
-      ids, demb3 = jax.shard_map(
-          gather2, mesh=ctx.mesh,
-          in_specs=(P(ctx.data_axes, None), P(ctx.data_axes, None, None)),
-          out_specs=(P(), P()), check_vma=False)(ids, demb3)
-    rows_s, block_ids, g_s = _segment_sorted(ids, demb3, segments)
-    table, acc = _stream_adagrad_presorted(
-        table, state.acc[0], rows_s, block_ids, g_s, lr, eps,
-        pack_p=config.pack_of(table))
-    return table, SparseOptState(acc=(acc,))
   rows_b = _valid_rows(config.row_index(ids.reshape(-1), ctx),
                        ids.reshape(-1), config)
   demb = demb.reshape(-1, demb.shape[-1]).astype(table.dtype)
-  # Replicated stream path: keep the NARROW geometry through the
-  # all_gather and the sort — _stream_adagrad expands after sorting
-  # (8x less gather/wire traffic at d=16; see its docstring). The
-  # sharded/XLA paths expand eagerly, operating in physical geometry.
   # The pack factor follows the CONCRETE array (pack_of), not ctx: a
   # serving/restore context must not re-decide the layout.
-  pack_p = config.pack_of(table)
-  defer_pack = pack_p > 1 and stream and not config.should_shard(ctx)
-  if not defer_pack:
-    rows_b, demb, config = _maybe_lane_pack(rows_b, demb, config, table,
-                                            pack_p)
-    pack_p = 1
+  rows_b, demb, config = _maybe_lane_pack(rows_b, demb, config, table,
+                                          config.pack_of(table))
   rows_b, demb = _pad_to_world(rows_b, demb, ctx.world_size)
   acc = state.acc[0]
 
@@ -719,10 +389,7 @@ def sparse_adagrad_apply(table: jax.Array, state: SparseOptState,
           body, mesh=ctx.mesh,
           in_specs=(P(ctx.data_axes), P(ctx.data_axes, None)),
           out_specs=(P(), P()), check_vma=False)(rows_b, demb)
-    if stream:
-      table, acc = _stream_adagrad(table, acc, rows_b, demb, lr, eps,
-                                   pack_p=pack_p)
-    elif dedup:
+    if dedup:
       rows, gsum = _dedup_grads(rows_b, demb, oob_row=table.shape[0])
       table, acc = _adagrad_rows(table, acc, rows, gsum, lr, eps)
     else:
@@ -741,9 +408,6 @@ def sparse_adagrad_apply(table: jax.Array, state: SparseOptState,
       all_ids = jax.lax.all_gather(ids_local, axes, tiled=True)   # [B]
       slice_g = jax.lax.all_to_all(demb_local, axes, split_axis=1,
                                    concat_axis=0, tiled=True)  # [B, d/W]
-      if _use_stream(impl):
-        return _stream_adagrad(shard, acc_shard, all_ids, slice_g,
-                               lr, eps)
       if dedup:
         rows, gsum = _dedup_grads(all_ids, slice_g, oob_row=vocab_c)
         return _adagrad_rows(shard, acc_shard, rows, gsum, lr, eps)
@@ -761,11 +425,6 @@ def sparse_adagrad_apply(table: jax.Array, state: SparseOptState,
 
   def apply_local(shard, slot_shards, local, g):
     (acc_shard,) = slot_shards
-    if _use_stream(impl):
-      # Stream kernel drops -1 rows itself (they sort to the front,
-      # away from the valid tail).
-      t, a = _stream_adagrad(shard, acc_shard, local, g, lr, eps)
-      return t, (a,)
     safe = jnp.where(local >= 0, local, rows_per_shard)   # oob -> dropped
     if dedup:
       rows, gsum = _dedup_grads(safe, g, oob_row=rows_per_shard)
@@ -777,43 +436,20 @@ def sparse_adagrad_apply(table: jax.Array, state: SparseOptState,
 
   table, (acc,) = _rowsharded_update(
       table, (acc,), rows_b, demb, apply_local, ctx=ctx,
-      combine=dedup or _use_stream(impl))
+      combine=dedup)
   return table, SparseOptState(acc=(acc,))
-
-
-def _stream_sgd(table, rows, g, lr, pack_p: int = 1):
-  # lr scales the payload, so traced learning rates work by construction.
-  # pack_p > 1: expand first, then sort (see _stream_adagrad — the
-  # narrow-sort order measured slower end-to-end).
-  from hybridbackend_tpu.ops.pallas.scatter import (
-      _pack_expand, scatter_add_sorted)
-  if pack_p > 1:
-    rows, g = _pack_expand(rows, g.astype(table.dtype), pack_p)
-  order = jnp.argsort(rows)
-  rows = rows[order]
-  g = (-lr) * g[order]
-  interpret = jax.default_backend() != 'tpu'
-  kwargs = _stream_kwargs(table, rows)
-  return scatter_add_sorted(table, rows, g,
-                            interpret=interpret, **kwargs)
 
 
 def sparse_sgd_apply(table: jax.Array, ids: jax.Array, demb: jax.Array,
                      config: TableConfig, lr: float,
-                     impl: str = 'auto',
                      ctx: Optional[Context] = None) -> jax.Array:
   """SGD on touched rows only (no slot state)."""
   ctx = ctx or Context.get()
-  stream = _use_stream(impl)
   rows_b = _valid_rows(config.row_index(ids.reshape(-1), ctx),
                        ids.reshape(-1), config)
   demb = demb.reshape(-1, demb.shape[-1]).astype(table.dtype)
-  pack_p = config.pack_of(table)
-  defer_pack = pack_p > 1 and stream and not config.should_shard(ctx)
-  if not defer_pack:
-    rows_b, demb, config = _maybe_lane_pack(rows_b, demb, config, table,
-                                            pack_p)
-    pack_p = 1
+  rows_b, demb, config = _maybe_lane_pack(rows_b, demb, config, table,
+                                          config.pack_of(table))
   rows_b, demb = _pad_to_world(rows_b, demb, ctx.world_size)
 
   if not config.should_shard(ctx):
@@ -825,18 +461,31 @@ def sparse_sgd_apply(table: jax.Array, ids: jax.Array, demb: jax.Array,
           gather, mesh=ctx.mesh,
           in_specs=(P(ctx.data_axes), P(ctx.data_axes, None)),
           out_specs=(P(), P()), check_vma=False)(rows_b, demb)
-    if stream:
-      return _stream_sgd(table, rows_b, demb, lr, pack_p=pack_p)
     oob = table.shape[0]
     safe = jnp.where((rows_b >= 0) & (rows_b < oob), rows_b, oob)
     return table.at[safe].add(-lr * demb, mode='drop')
+
+  if config.partition == 'column':
+    axes = ctx.data_axes
+    vocab_c = config.padded_vocab(ctx)
+
+    def body_c(shard, ids_local, demb_local):
+      all_ids = jax.lax.all_gather(ids_local, axes, tiled=True)
+      slice_g = jax.lax.all_to_all(demb_local, axes, split_axis=1,
+                                   concat_axis=0, tiled=True)
+      safe = jnp.where((all_ids >= 0) & (all_ids < vocab_c), all_ids,
+                       vocab_c)
+      return _sgd_rows(shard, safe, slice_g, lr)
+
+    return jax.shard_map(
+        body_c, mesh=ctx.mesh,
+        in_specs=(P(None, axes), P(axes), P(axes, None)),
+        out_specs=P(None, axes), check_vma=False)(table, rows_b, demb)
 
   rows_per_shard = config.padded_vocab(ctx) // ctx.world_size
 
   def apply_local(shard, slot_shards, local, g):
     del slot_shards
-    if _use_stream(impl):
-      return _stream_sgd(shard, local, g, lr), ()
     safe = jnp.where(local >= 0, local, rows_per_shard)
     return _sgd_rows(shard, safe, g, lr), ()
 
@@ -867,17 +516,6 @@ def _adam_rows(table, m, v, rows, gsum, lr, step, b1, b2, eps):
   return table, m, v
 
 
-def _stream_adam(table, m, v, rows, g, lr, step, b1, b2, eps):
-  from hybridbackend_tpu.ops.pallas.scatter import adam_update_sorted
-  order = jnp.argsort(rows)
-  interpret = jax.default_backend() != 'tpu'
-  kwargs = _stream_kwargs(table, rows, packs=False)  # adam never packs
-  kwargs.pop('dma_chunk', None)  # adam kernel: per-chunk DMAs only
-  return adam_update_sorted(table, m, v, rows[order], g[order],
-                            lr=lr, step=step, b1=float(b1), b2=float(b2),
-                            eps=float(eps), interpret=interpret, **kwargs)
-
-
 def init_adam_state(table: jax.Array) -> SparseOptState:
   """Adam moment slots co-sharded with the table."""
   zeros = jax.jit(jnp.zeros_like,
@@ -891,7 +529,6 @@ def sparse_adam_apply(table: jax.Array, state: SparseOptState,
                       config: TableConfig, lr, step,
                       b1: float = 0.9, b2: float = 0.999,
                       eps: float = 1e-8,
-                      impl: str = 'auto',
                       ctx: Optional[Context] = None
                       ) -> Tuple[jax.Array, SparseOptState]:
   """LazyAdam on touched rows only (TF ``LazyAdam`` semantics: untouched
@@ -925,13 +562,9 @@ def sparse_adam_apply(table: jax.Array, state: SparseOptState,
           gather, mesh=ctx.mesh,
           in_specs=(P(ctx.data_axes), P(ctx.data_axes, None)),
           out_specs=(P(), P()), check_vma=False)(rows_b, demb)
-    if _use_stream(impl):
-      table, m, v = _stream_adam(table, m, v, rows_b, demb, lr, step,
-                                 b1, b2, eps)
-    else:
-      rows, gsum = _dedup_grads(rows_b, demb, oob_row=table.shape[0])
-      table, m, v = _adam_rows(table, m, v, rows, gsum, lr, step,
-                               b1, b2, eps)
+    rows, gsum = _dedup_grads(rows_b, demb, oob_row=table.shape[0])
+    table, m, v = _adam_rows(table, m, v, rows, gsum, lr, step,
+                             b1, b2, eps)
     return table, SparseOptState(acc=(m, v))
 
   axes = ctx.data_axes
@@ -942,9 +575,6 @@ def sparse_adam_apply(table: jax.Array, state: SparseOptState,
       all_ids = jax.lax.all_gather(ids_local, axes, tiled=True)
       slice_g = jax.lax.all_to_all(demb_local, axes, split_axis=1,
                                    concat_axis=0, tiled=True)
-      if _use_stream(impl):
-        return _stream_adam(shard, m_s, v_s, all_ids, slice_g, lr,
-                            step, b1, b2, eps)
       rows, gsum = _dedup_grads(all_ids, slice_g, oob_row=vocab_c)
       return _adam_rows(shard, m_s, v_s, rows, gsum, lr, step,
                         b1, b2, eps)
@@ -961,10 +591,6 @@ def sparse_adam_apply(table: jax.Array, state: SparseOptState,
 
   def apply_local(shard, slot_shards, local, g):
     m_s, v_s = slot_shards
-    if _use_stream(impl):
-      t, m2, v2 = _stream_adam(shard, m_s, v_s, local, g, lr, step,
-                               b1, b2, eps)
-      return t, (m2, v2)
     safe = jnp.where(local >= 0, local, rows_per_shard)
     rows, gsum = _dedup_grads(safe, g, oob_row=rows_per_shard)
     t, m2, v2 = _adam_rows(shard, m_s, v_s, rows, gsum, lr, step,

@@ -1,6 +1,6 @@
 """Table stacking: one exchange for many embedding tables.
 
-TPU-native re-design of the reference's collective *packing* passes
+A JAX re-design of the reference's collective *packing* passes
 (``/root/reference/hybridbackend/tensorflow/graph/optimize_collective.cc:94-163``
 Pack → ``*N``/``MergedN`` grouped ops, and the PICASSO paper's packing of
 sparse lookups): instead of post-hoc graph surgery that merges N NCCL
@@ -228,29 +228,6 @@ def pack_ids(stack: TableStack, ids_by_name: Dict[str, jax.Array]
   return all_ids, list(zip(names, shapes, widths))
 
 
-def update_segments(stack: TableStack, layout
-                    ) -> Tuple[Tuple[int, int, int], ...]:
-  """Static per-member segments of a ``pack_ids`` ``[B, K]`` id block.
-
-  Returns ``((col0, col1, row_hi), ...)`` in layout order: member
-  ``i``'s ids occupy columns ``[col0, col1)`` and its stacked rows lie
-  in ``[offsets[i], row_hi)`` with ``row_hi`` = the NEXT member's
-  offset (stacked vocab for the last) — ranges are disjoint and
-  ascending, which is what lets the sparse-update path sort per
-  segment instead of globally (concatenated sorted segments are
-  globally sorted). Feed to ``sparse_adagrad_apply(segments=...)``.
-  """
-  bounds = {}
-  offs = list(stack.offsets) + [stack.stacked.vocab_size]
-  for i, cfg in enumerate(stack.configs):
-    bounds[cfg.name] = int(offs[i + 1])
-  segs, pos = [], 0
-  for name, _shape, width in layout:
-    segs.append((pos, pos + width, bounds[name]))
-    pos += width
-  return tuple(segs)
-
-
 def unpack_embeddings(stack: TableStack, emb: jax.Array,
                       layout) -> Dict[str, jax.Array]:
   """Split fused ``[B, K, D]`` embeddings back per member.
@@ -270,5 +247,4 @@ def unpack_embeddings(stack: TableStack, emb: jax.Array,
 
 
 __all__ = ['TableStack', 'build_stacks', 'create_stacked_tables',
-           'update_segments',
            'stacked_lookup', 'pack_ids', 'unpack_embeddings']

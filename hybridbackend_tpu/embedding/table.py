@@ -1,6 +1,6 @@
 """Sharded embedding table creation and shard policy.
 
-TPU-native re-design of the reference's sharded embedding weights
+A JAX re-design of the reference's sharded embedding weights
 (``/root/reference/hybridbackend/tensorflow/embedding/sharding.py:49-139``
 and ``embedding/variables.py:69-162``). The reference patches
 ``tf.get_variable`` to build per-rank ``name/part_<rank>`` variables with
@@ -65,17 +65,15 @@ OPTIONS.register(
         'branch, exact). Disabling leaves garbage embeddings in '
         'overflowed lanes — only for benchmarking.')
 OPTIONS.register(
-    'emb_lane_pack', 'auto', env='HB_EMB_LANE_PACK',
-    doc="Store narrow (dim<128, 128%dim==0) tables lane-PACKED as "
-        "[V/p, 128] physical arrays (p=128/dim). XLA tiles every f32 "
-        "array to 128 lanes, so a narrow table otherwise occupies "
-        "128/dim times its logical bytes in HBM and every pass over it "
-        "(optimizer, update kernel) moves the padding too. 'auto' packs "
-        "single-chip row-partition tables (multi-chip lookups would "
-        "ship 128-lane rows on the wire — opt in per table when ids "
-        "are packed-row-local); 'on'/'off' force. Lane selection on "
-        "lookup is a batch-sized mask — negligible. LazyAdam tables "
-        "never pack (per-row presence needs a spare lane).")
+    'emb_lane_pack', 'off', env='HB_EMB_LANE_PACK',
+    doc="Store narrow (dim<128, 128%dim==0) row-partition tables "
+        "lane-PACKED as [V/p, 128] physical arrays (p=128/dim): 'on' "
+        "packs; 'off' keeps [V, dim] ('auto' is a deprecated alias of "
+        "'off'). Packing makes the "
+        "lookup gather 128-wide rows and select lanes, and widens "
+        "every update p-fold; on the GPU the unpacked flagship step is "
+        "the faster one (PERF.md). LazyAdam tables never pack (per-row "
+        "presence needs a spare lane).")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -127,21 +125,12 @@ class TableConfig:
   def pack_factor(self, ctx: Optional[Context] = None) -> int:
     """Lane-packing factor ``p`` (1 = unpacked): the table is stored
     physically as ``[padded_vocab/p, p·dim = 128]`` (see the
-    ``emb_lane_pack`` option doc — XLA pads every f32 minor dim to 128
-    lanes, so narrow tables otherwise waste 128/dim of HBM and of every
-    streaming pass)."""
+    ``emb_lane_pack`` option doc)."""
     if self.dim >= 128 or 128 % self.dim != 0 or self.partition != 'row':
       return 1
     want = self.lane_pack
     if want is None:
-      mode = str(OPTIONS.get_for('emb_lane_pack', self.name))
-      ctx = ctx or Context.get()
-      if mode == 'on':
-        want = True
-      elif mode == 'off':
-        want = False
-      else:  # auto: single-chip only (packed rows ride the wire 128-wide)
-        want = ctx.world_size == 1
+      want = str(OPTIONS.get_for('emb_lane_pack', self.name)) == 'on'
     return 128 // self.dim if want else 1
 
   def pack_of(self, table) -> int:

@@ -1,6 +1,6 @@
 """High-level Trainer: train / evaluate / train_and_evaluate / export.
 
-TPU-native re-design of the reference's wrapped Estimator
+A JAX re-design of the reference's wrapped Estimator
 (``/root/reference/hybridbackend/tensorflow/estimator/estimator.py:73-577``)
 and in-training ``EvaluationHook``
 (``training/evaluation.py:111-327``). Instead of wrapping a TF Estimator
@@ -439,9 +439,9 @@ class SparseTrainer(Trainer):
     if tables is None:
       if table_optimizer == 'adam':
         # LazyAdam tables never lane-pack (per-row moment presence
-        # would decay neighboring logical rows' moments) — the 'auto'
-        # pack policy cannot see the optimizer, so disable it here
-        # before the tables are materialized.
+        # would decay neighboring logical rows' moments) — the
+        # emb_lane_pack option cannot see the optimizer, so disable it
+        # here before the tables are materialized.
         from hybridbackend_tpu.framework.options import OPTIONS as _OPTS
         with _OPTS.override(emb_lane_pack='off'):
           tables = fx.init(rng if rng is not None else jax.random.PRNGKey(0))
@@ -505,9 +505,9 @@ class SparseTrainer(Trainer):
 
     ``table_dtype='int8'`` exports per-row symmetric int8 tables
     (``embedding/quant.py``): ~4× smaller serving bundles / 4× more
-    vocab per chip, dequantized after the gather (a capacity win —
-    the TPU row gather is row-rate-bound, so predict latency is
-    roughly unchanged); the dense tower stays float.
+    vocab per chip, dequantized after the gather (a capacity win;
+    its effect on predict latency on the GPU is not measured); the
+    dense tower stays float.
 
     ``example_batch`` must carry every column the loss function reads
     (including a dummy label column). EVERY process must call this

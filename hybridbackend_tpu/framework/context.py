@@ -1,9 +1,9 @@
-"""Cluster/topology context for TPU meshes.
+"""Cluster/topology context for device meshes.
 
-TPU-native re-design of the reference's ``Context`` singleton
+A JAX re-design of the reference's ``Context`` singleton
 (``/root/reference/hybridbackend/tensorflow/framework/context.py:47-461``).
 The reference parses ``TF_CONFIG`` to learn cluster membership and exposes
-``rank``/``world_size``/``local_world_size``; on TPU, cluster membership
+``rank``/``world_size``/``local_world_size``; here, cluster membership
 comes from ``jax.distributed`` / the PJRT runtime, and the unit of
 parallelism is a :class:`jax.sharding.Mesh` rather than per-process GPUs.
 

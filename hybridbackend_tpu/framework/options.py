@@ -1,6 +1,6 @@
 """Typed, env-overridable configuration registry.
 
-TPU-native re-design of the reference's ``Options`` registry
+A JAX re-design of the reference's ``Options`` registry
 (``/root/reference/hybridbackend/tensorflow/framework/options.py:29-257``):
 every knob is registered with a name, a default, an optional environment
 variable that overrides the default at first read, and an optional parser.

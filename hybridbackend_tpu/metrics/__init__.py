@@ -1,6 +1,6 @@
 """Globally exact distributed evaluation metrics.
 
-TPU-native re-design of the reference metrics
+A JAX re-design of the reference metrics
 (``/root/reference/hybridbackend/tensorflow/metrics/``): ``auc``
 allreduces a stacked TP/FN/TN/FP confusion matrix across workers
 (``auc.py:130-186``), ``gauc`` computes per-group AUCs in a C++ kernel

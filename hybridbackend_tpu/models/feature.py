@@ -1,6 +1,6 @@
 """Feature extraction: batch columns → embedding/dense feature vectors.
 
-TPU-native analogue of the reference tutorial's ``extract_features``
+The JAX analogue of the reference tutorial's ``extract_features``
 (``/root/reference/docs/tutorial/ranking/taobao/train.py:36-160``), which
 wraps each categorical column in ``hb.embedding_scope`` so its table is
 sharded. Here the same declaration is explicit: an

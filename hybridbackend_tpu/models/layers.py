@@ -4,8 +4,8 @@ Pure-functional (params-as-pytree) equivalents of the layers used by the
 reference tutorial models (``/root/reference/docs/tutorial/ranking/model.py``
 and ``din_layers.py``): dense/MLP with the reference's initializer scheme,
 the Dice activation, and DIN's local-activation-unit attention pooling.
-Everything is static-shaped and jit-friendly; matmuls run in bfloat16 on
-the MXU when ``compute_dtype`` is set.
+Everything is static-shaped and jit-friendly; matmuls run in bfloat16
+when ``compute_dtype`` is set.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import jax.numpy as jnp
 from hybridbackend_tpu.framework.options import OPTIONS
 
 OPTIONS.register('compute_dtype', 'float32', env='HB_COMPUTE_DTYPE',
-                 doc='MXU compute dtype for dense towers '
+                 doc='Matmul compute dtype for dense towers '
                      '(float32|bfloat16); params and accumulation stay '
                      'fp32.')
 
@@ -51,7 +51,7 @@ def dense_apply(params: Dict[str, jax.Array], x: jax.Array,
   if compute_dtype is not None:
     x = x.astype(compute_dtype)
     w = w.astype(compute_dtype)
-  # Params stay fp32; the matmul runs on the MXU in compute_dtype with
+  # Params stay fp32; the matmul runs in compute_dtype with
   # fp32 accumulation (preferred_element_type).
   y = jnp.dot(x, w, preferred_element_type=jnp.float32) + b
   if activation is not None:

@@ -1,6 +1,6 @@
-// Native tabular data plane for TPU hosts.
+// Native tabular data plane for accelerator hosts.
 //
-// TPU-native re-design of the reference's C++ data stack
+// A JAX re-design of the reference's C++ data stack
 // (/root/reference/hybridbackend/tensorflow/data/tabular/{dataset,parquet,
 // orc,table}.cc, data/rebatch/rebatch_buffer.cc, data/prefetch/prefetch.cc):
 // one pipeline that decodes Parquet row groups / ORC stripes with a thread

@@ -1,6 +1,6 @@
-// Native host-side hot loops for the TPU input pipeline.
+// Native host-side hot loops for the input pipeline.
 //
-// TPU-native equivalent of the reference's C++ data plane
+// The JAX equivalent of the reference's C++ data plane
 // (/root/reference/hybridbackend/tensorflow/data/rebatch/rebatch_buffer.cc,
 // tensorflow/common/arrow.cc, common/murmur3.cu.h): the Arrow decode
 // itself is already C++ (pyarrow), so what remains hot on the host are
@@ -20,10 +20,10 @@
 namespace {
 
 // Open-addressing int64 -> int32 hash map with linear probing and
-// tombstone deletion. This is the TPU-host counterpart of the
+// tombstone deletion. This is the host-side counterpart of the
 // reference's device slab hash probed by warp-cooperative kernels
 // (/root/reference/hybridbackend/tensorflow/embedding/lookup_functors.cu.cc:40-170,
-// lookup_ops.cc:38-151): on TPU the id->row/slot resolution happens on
+// lookup_ops.cc:38-151): here the id->row/slot resolution happens on
 // the host input path, so it must run at memory speed, not at Python
 // dict speed.
 struct IdMap {

@@ -1,6 +1,6 @@
 """Micro-batch pipelining (gradient accumulation).
 
-TPU-native re-design of the reference's ``compute_pipeline`` +
+A JAX re-design of the reference's ``compute_pipeline`` +
 ``PipelinedOptimizer`` (``/root/reference/hybridbackend/tensorflow/pipeline/pipeline_lib.py:73-244``):
 ``data_batch_count > 1`` splits each training step into several
 micro-batches whose dense gradients are accumulated (``accumulate_n``)

@@ -3,11 +3,11 @@
 The PICASSO paper's second pillar (reference README.md:66-79; the
 reference realizes it with graph passes + separate CUDA streams):
 overlap the embedding EXCHANGE of one micro-batch with the dense
-COMPUTE of the previous one. On TPU the same overlap falls out of
+COMPUTE of the previous one. In XLA the same overlap can fall out of
 dataflow: inside one jitted ``lax.scan`` step, micro-batch ``i+1``'s
 lookup (all_gather/all_to_all + gather — interconnect + HBM work) has
-no data dependency on micro-batch ``i``'s tower (MXU work), so XLA's
-latency-hiding scheduler runs them concurrently.
+no data dependency on micro-batch ``i``'s tower (matmul work), so XLA's
+latency-hiding scheduler can run them concurrently.
 
 Semantics are EXACT accumulate-then-apply: every micro-batch looks up
 the same table version; dense gradients average across micro-batches;
@@ -144,7 +144,7 @@ def make_interleaved_train_step(
     table_opt = dict(state.table_opt)
     for name in (draw_k or {}):
       stack = stacks_by_name[name]
-      ids, layout = pack_ids(stack, member_full[name])       # [B, K]
+      ids, _ = pack_ids(stack, member_full[name])            # [B, K]
       if draws is None:
         demb = draw_k[name] * scale
       else:
@@ -155,14 +155,9 @@ def make_interleaved_train_step(
             tables[name], table_opt[name], ids, demb, stack.stacked,
             table_lr, step=state.step + 1, ctx=ctx)
       else:
-        from hybridbackend_tpu.framework.options import OPTIONS
-        segments = None
-        if OPTIONS['emb_update_segment_sort']:
-          from hybridbackend_tpu.embedding.stack import update_segments
-          segments = update_segments(stack, layout)
         tables[name], table_opt[name] = sparse_adagrad_apply(
             tables[name], table_opt[name], ids, demb, stack.stacked,
-            table_lr, ctx=ctx, segments=segments)
+            table_lr, ctx=ctx)
 
     new_state = SparseTrainState(
         step=state.step + 1, dense=dense, tables=tables,

@@ -1,12 +1,13 @@
 """Launcher: ``python -m hybridbackend_tpu.run [options] script.py ...``.
 
-TPU-native re-design of the reference launcher
+A JAX re-design of the reference launcher
 (``/root/reference/hybridbackend/run.py:65-228``), which spawns one
-process per visible GPU and synthesizes per-process ``TF_CONFIG``. On
-TPU the unit is one process per *host*:
+process per visible GPU and synthesizes per-process ``TF_CONFIG``. In
+JAX the unit is one process per *host*, driving all of its GPUs:
 
-* On a real TPU pod slice, ``jax.distributed.initialize()`` discovers
-  the topology from the TPU metadata — the launcher just initializes and
+* Without ``--simulate``, the launcher demands a GPU and places the
+  compile cache (``framework/platform.use_gpu``), initializes
+  ``jax.distributed`` where the environment describes a cluster, and
   executes the script.
 * ``--simulate N`` locally forks N processes, each with its own
   process_id and a shared coordinator, on CPU devices — the reference's
@@ -211,6 +212,10 @@ def main():
         jax.distributed.initialize()
       except Exception:  # single-process / no cluster metadata
         pass
+  if 'HB_RUN_PROCESS_ID' not in os.environ:
+    # After jax.distributed, which must precede backend initialization.
+    from hybridbackend_tpu.framework.platform import use_gpu
+    use_gpu()
   try:
     _run_script([opts.script] + opts.args)
   finally:

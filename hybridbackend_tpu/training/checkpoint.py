@@ -1,12 +1,12 @@
 """World-size-independent sharded checkpointing.
 
-TPU-native replacement for the reference's sharded Saver protocol
+A JAX replacement for the reference's sharded Saver protocol
 (``/root/reference/hybridbackend/tensorflow/training/saver.py:57-341``):
 the reference has every rank write its variable shards to temp files,
 rendezvous on a Barrier, and rank0 merge checkpoints; shard metadata
 (``SaveSliceInfo``) makes restores world-size independent.
 
-On TPU all of that collapses into Orbax + global-shape arrays: each
+In JAX all of that collapses into Orbax + global-shape arrays: each
 embedding table is ONE logical array whose NamedSharding determines
 which host writes which rows; Orbax writes shards in parallel per host
 and restores under *any* new mesh/world size (reference parity:
@@ -21,7 +21,6 @@ import os
 from typing import Any, Optional
 
 import jax
-import orbax.checkpoint as ocp
 
 from hybridbackend_tpu.framework.options import OPTIONS
 
@@ -43,6 +42,9 @@ class CheckpointManager:
   def __init__(self, directory: str, max_to_keep: Optional[int] = None):
     if max_to_keep is None:
       max_to_keep = int(OPTIONS['keep_checkpoint_max'])
+    # Imported here so that the package imports without orbax.
+    import orbax.checkpoint as ocp
+    self._ocp = ocp
     self._dir = os.path.abspath(directory)
     self._mgr = ocp.CheckpointManager(
         self._dir,
@@ -54,7 +56,7 @@ class CheckpointManager:
     return self._dir
 
   def save(self, step: int, state: Any, wait: bool = True) -> None:
-    self._mgr.save(step, args=ocp.args.StandardSave(state))
+    self._mgr.save(step, args=self._ocp.args.StandardSave(state))
     if wait:
       self._mgr.wait_until_finished()
 
@@ -85,7 +87,7 @@ class CheckpointManager:
     grow = bool(OPTIONS['ckpt_grow_vocab'])
     template = self._reshape_template(state_template, step, grow=grow)
     restored = self._mgr.restore(
-        step, args=ocp.args.StandardRestore(template))
+        step, args=self._ocp.args.StandardRestore(template))
     restored = self._reshape_restored(restored, state_template, grow=grow)
     # Re-commit to the context mesh: restoring through a template whose
     # leaves were never mesh-placed yields single-device arrays that

@@ -1,6 +1,6 @@
 """Training hooks: step stats and timer-driven policies.
 
-TPU-native parity with the reference's ``Policy``/``StepStatHook``
+Parity with the reference's ``Policy``/``StepStatHook``
 (``/root/reference/hybridbackend/tensorflow/training/hooks.py:36-321``):
 ``StepStatHook`` logs secs/step percentiles (p10/p50/p90) and
 samples/sec; ``Policy`` invokes a callback every N steps or T seconds.

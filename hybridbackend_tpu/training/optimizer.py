@@ -1,6 +1,6 @@
 """Optimizer integration: replicated vs sharded parameter handling.
 
-TPU-native re-design of the reference's optimizer wrapping + gradient
+A JAX re-design of the reference's optimizer wrapping + gradient
 aggregation (``/root/reference/hybridbackend/tensorflow/training/optimizer.py:55-185``
 and ``gradient.py:119-218``). The reference mixes an aggregation base
 class into every TF optimizer: replicated dense grads are allreduced and

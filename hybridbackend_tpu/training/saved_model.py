@@ -1,6 +1,6 @@
 """Serving export via jax.export (SavedModel parity).
 
-TPU-native replacement for the reference's SavedModel export
+A JAX replacement for the reference's SavedModel export
 (``/root/reference/hybridbackend/tensorflow/training/saved_model.py:54-192``):
 rank0 builds a serving graph from the checkpoint and writes a
 signature'd SavedModel. Here the serving function is serialized with
@@ -139,10 +139,8 @@ class Served:
     from hybridbackend_tpu.embedding.dynamic import IdMapper
     self._call, self._params = load(path)
     # Pin the parameters on device ONCE: leaving them as host arrays
-    # makes every predict re-transfer the whole bundle (measured 3.5 s
-    # per call for a 154 MB flagship bundle through a slow H2D path;
-    # ~10 ms even on PCIe). Transfer is async — construction stays
-    # fast; the first predict waits for it.
+    # makes every predict re-transfer the whole bundle. Transfer is
+    # async — construction stays fast; the first predict waits for it.
     self._params = jax.device_put(self._params)
     with open(os.path.join(path, 'signature.json')) as f:
       self.signature = json.load(f)

@@ -7,8 +7,8 @@ only their rows. This module is the jitted-step embodiment:
 
 * dense params → any optax optimizer (GSPMD allreduce);
 * tables → :mod:`hybridbackend_tpu.embedding.sparse_update` Adagrad on
-  touched rows only — measured 2x step time on v5e for a 512 MB table
-  vs dense optax, with the gap growing linearly in table size.
+  touched rows only, so the update's cost follows the batch, not the
+  table size.
 
 The step differentiates w.r.t. the *looked-up embeddings* (not the
 tables), so no dense ``[V, D]`` gradient ever materializes.
@@ -27,7 +27,6 @@ from hybridbackend_tpu.embedding.sparse_update import (
     SparseOptState, init_adagrad_state, init_adam_state,
     sparse_adagrad_apply, sparse_adam_apply)
 from hybridbackend_tpu.framework.context import Context
-from hybridbackend_tpu.framework.options import OPTIONS
 from hybridbackend_tpu.models.feature import StackedFeatureExtractor
 from hybridbackend_tpu.training.train import replicate_over_mesh
 
@@ -108,12 +107,16 @@ def make_sparse_train_step(
 
   def step(state: SparseTrainState, batch):
     # 1. Fused lookups; tables are NOT differentiated.
-    raw, ids_by_stack, layouts = fx.lookup_raw(state.tables, batch)
-    raw = jax.tree_util.tree_map(jax.lax.stop_gradient, raw)
+    with jax.named_scope('lookup'):
+      raw, ids_by_stack, layouts = fx.lookup_raw(state.tables, batch)
+      raw = jax.tree_util.tree_map(jax.lax.stop_gradient, raw)
 
     # 2. Differentiate w.r.t. dense params AND the raw embeddings.
     # ``layouts`` is static metadata (safe to close over); ``batch`` is
     # threaded explicitly so the wire-compressed path can shard it.
+    # The 'tower' scope names the forward and, through autodiff, the
+    # backward pass.
+    @jax.named_scope('tower')
     def loss_from(dense, raw_embs, batch_):
       if raw_model_loss is not None:
         members = {}
@@ -173,28 +176,25 @@ def make_sparse_train_step(
                                                    batch)
 
     # 3. Dense update (optax; GSPMD handles the allreduce).
-    updates, dense_opt = dense_optimizer.update(dgrads, state.dense_opt,
-                                                state.dense)
-    dense = optax.apply_updates(state.dense, updates)
+    with jax.named_scope('dense_update'):
+      updates, dense_opt = dense_optimizer.update(
+          dgrads, state.dense_opt, state.dense)
+      dense = optax.apply_updates(state.dense, updates)
 
     # 4. Row-sparse optimizer per stacked table.
     tables = dict(state.tables)
     table_opt = dict(state.table_opt)
     for name, demb in draw.items():
       stack = stacks_by_name[name]
-      if table_optimizer == 'adam':
-        tables[name], table_opt[name] = sparse_adam_apply(
-            tables[name], table_opt[name], ids_by_stack[name], demb,
-            stack.stacked, table_lr, step=state.step + 1, ctx=ctx)
-      else:
-        segments = None
-        if OPTIONS['emb_update_segment_sort']:
-          from hybridbackend_tpu.embedding.stack import update_segments
-          segments = update_segments(stack, layouts[name])
-        tables[name], table_opt[name] = sparse_adagrad_apply(
-            tables[name], table_opt[name], ids_by_stack[name], demb,
-            stack.stacked, table_lr, dedup=table_dedup, ctx=ctx,
-            segments=segments)
+      with jax.named_scope('table_update'):
+        if table_optimizer == 'adam':
+          tables[name], table_opt[name] = sparse_adam_apply(
+              tables[name], table_opt[name], ids_by_stack[name], demb,
+              stack.stacked, table_lr, step=state.step + 1, ctx=ctx)
+        else:
+          tables[name], table_opt[name] = sparse_adagrad_apply(
+              tables[name], table_opt[name], ids_by_stack[name], demb,
+              stack.stacked, table_lr, dedup=table_dedup, ctx=ctx)
 
     new_state = SparseTrainState(
         step=state.step + 1, dense=dense, tables=tables,

@@ -1,6 +1,6 @@
 """Train/eval step construction over the context mesh.
 
-TPU-native replacement for the reference's ``MonitoredTrainingSession``
+A JAX replacement for the reference's ``MonitoredTrainingSession``
 graph machinery (``/root/reference/hybridbackend/tensorflow/training/session.py:43-164``):
 in JAX a training step is a pure jitted function of ``(state, batch)``.
 The reference's per-step concerns map as:

@@ -1,7 +1,7 @@
 """Collective wire-byte accounting from compiled HLO.
 
 The reference publishes measured collective tables
-(``/root/reference/docs/data.md:265-285``); on TPU the compiler decides
+(the reference's ``docs/data.md:265-285``); under XLA the compiler decides
 the final collectives, so the ground truth is the compiled HLO. This
 module counts, per device, the bytes each collective op moves on the
 interconnect under standard ring/all-pairs algorithms:

@@ -2,10 +2,13 @@
 
 Mirrors the reference's ``Spawn`` multi-process fixture
 (``/root/reference/hybridbackend/common/test.py:36-152``), which forks N
-processes with one GPU each to test collectives. On TPU/JAX the same
+processes with one GPU each to test collectives. In JAX the same
 coverage comes from ``--xla_force_host_platform_device_count``: a single
 process with N virtual CPU devices exercising the identical ``Mesh`` /
-``shard_map`` / collective code paths as a real pod slice.
+``shard_map`` / collective code paths as a multi-GPU mesh.
+
+``JAX_PLATFORMS`` picks the platform (``cpu`` unless set); the tests
+marked ``gpu`` need ``JAX_PLATFORMS=cuda`` and a card.
 """
 
 import os
@@ -16,7 +19,8 @@ if '--xla_force_host_platform_device_count' not in os.environ['XLA_FLAGS']:
 
 import jax  # noqa: E402
 
-jax.config.update('jax_platforms', 'cpu')
+os.environ.setdefault('JAX_PLATFORMS', 'cpu')
+jax.config.update('jax_platforms', os.environ['JAX_PLATFORMS'])
 
 import pytest  # noqa: E402
 

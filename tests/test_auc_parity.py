@@ -1,8 +1,8 @@
 """Training-quality (AUC-convergence) parity of the fast path (r4 #4).
 
 Step-level exactness is asserted elsewhere; this trains the exact
-dense-update baseline and the FULL fast path (stream kernel + lane
-packing + bucketed exchanges + bf16 wire + bf16 one-hot contracts) to
+dense-update baseline and the FULL fast path (row-sparse XLA update +
+bucketed exchanges + bf16 wire) to
 completion on a planted-nonlinear-signal CTR set and requires the final
 eval AUCs to agree — including a run whose bucket/unique capacities are
 set far below the realized occupancies so the exact overflow fallbacks
@@ -11,7 +11,7 @@ carry every step. Reference doctrine: tutorials train to reference AUC
 
 On the 8-device CPU mesh the fast path exercises the real multi-chip
 machinery (bucketed alltoall exchanges, bf16 wire, shard_map update
-routing) with the stream kernel in interpret mode.
+routing).
 """
 
 import os

@@ -54,8 +54,7 @@ def test_grad_rows(setup):
   assert set(np.nonzero(np.abs(g).sum(-1))[0].tolist()) == set(ids.tolist())
 
 
-@pytest.mark.parametrize('impl', ['xla', 'stream'])
-def test_sparse_adagrad(setup, impl):
+def test_sparse_adagrad(setup):
   ctx, cfg, tbl = setup
   host = np.asarray(tbl)
   rng = np.random.RandomState(2)
@@ -63,7 +62,7 @@ def test_sparse_adagrad(setup, impl):
   demb = rng.randn(B, D).astype(np.float32)
   state = init_adagrad_state(tbl, 0.1)
   t2, s2 = sparse_adagrad_apply(tbl, state, jnp.asarray(ids),
-                                jnp.asarray(demb), cfg, 0.1, impl=impl)
+                                jnp.asarray(demb), cfg, 0.1)
   wt = host.copy()
   wa = np.full((V, D), 0.1, np.float32)
   for r in np.unique(ids):

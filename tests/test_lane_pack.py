@@ -1,11 +1,8 @@
-"""Lane-packed table residency (round-3): narrow [V, d] tables stored
-physically as [V/p, 128].
-
-XLA tiles every f32 array's minor dim to 128 lanes, so a dim-16 table
-otherwise occupies 8x its logical bytes in HBM and every optimizer /
-update pass moves the padding too. Packing must be TRANSPARENT: lookups,
-gradients, sparse updates, stacking, export, and checkpoints all agree
-with the unpacked layout bit-for-bit (modulo float assoc)."""
+"""Lane-packed table residency: narrow [V, d] tables stored physically
+as [V/p, 128] when ``emb_lane_pack='on'`` (the default, 'off', keeps
+[V, d]). Packing must be TRANSPARENT: lookups, gradients, sparse
+updates, stacking, export, and checkpoints all agree with the unpacked
+layout bit-for-bit (modulo float assoc)."""
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +16,19 @@ from hybridbackend_tpu.embedding.sparse_update import (
     init_adagrad_state, sparse_adagrad_apply)
 
 V, D, B = 1024, 16, 256
+
+
+@pytest.mark.parametrize('mode,packed', [
+    (None, False), ('off', False), ('auto', False), ('on', True)])
+def test_lane_pack_policy(mode, packed):
+  """'off' is the default and 'auto' is its alias; only 'on' packs."""
+  cfg = TableConfig('t', V, D)
+  if mode is None:
+    assert hb.OPTIONS['emb_lane_pack'] == 'off'
+    assert cfg.pack_factor() == 1
+    return
+  with hb.scope(emb_lane_pack=mode):
+    assert cfg.pack_factor() == (128 // D if packed else 1)
 
 
 def _host_logical(table, cfg, ctx=None):
@@ -180,10 +190,9 @@ def test_adam_rejects_packed_tables():
 
 def test_adam_trainer_auto_policy_never_packs():
   """SparseTrainer(table_optimizer='adam') on a SINGLE-device mesh must
-  not crash: the 'auto' lane-pack policy packs single-chip narrow
-  tables, but LazyAdam is incompatible with packing — the trainer
-  disables packing before materializing tables (r3 self-review
-  finding: default config crashed at the first step)."""
+  not crash even where emb_lane_pack='on' packs narrow tables: LazyAdam
+  is incompatible with packing, so the trainer disables packing before
+  materializing tables."""
   from jax.sharding import Mesh
   from hybridbackend_tpu.framework.context import Context
   from hybridbackend_tpu.models import (
@@ -201,10 +210,11 @@ def test_adam_trainer_auto_policy_never_packs():
     pel = (p - b['label']) ** 2
     return jnp.mean(pel), {'preds': p, 'per_example_loss': pel}
 
-  tr = hb.SparseTrainer(
-      fx, ml, {'w': jnp.zeros((17, 1), jnp.float32)},
-      dense_optimizer=optax.sgd(0.1), table_lr=0.1,
-      table_optimizer='adam', rng=jax.random.PRNGKey(0), ctx=ctx1)
+  with hb.scope(emb_lane_pack='on'):
+    tr = hb.SparseTrainer(
+        fx, ml, {'w': jnp.zeros((17, 1), jnp.float32)},
+        dense_optimizer=optax.sgd(0.1), table_lr=0.1,
+        table_optimizer='adam', rng=jax.random.PRNGKey(0), ctx=ctx1)
   name = fx.stacks[0].stacked.name
   assert tr.state.tables[name].shape[1] == 16  # unpacked
   r = np.random.RandomState(0)

@@ -19,10 +19,15 @@ def test_small_hot_table_replicates_big_table_shards():
 
 def test_hot_skewed_table_prefers_alltoall():
   cfgs = [TableConfig('hot', 10_000_000, 16)]
-  # 8192 ids but only ~5% unique: deduplicated alltoall payload wins.
-  plans = plan_sharding(cfgs, {'hot': 8192}, unique_fraction={'hot': 0.05})
+  # 65536 ids but only ~5% unique: deduplicated alltoall payload wins.
+  # (At 8192 ids the allgather wins: the per-hop latency floor, taken
+  # from NVLink's 450 GB/s, prices alltoall's extra hops above the
+  # bytes it saves at that batch.)
+  plans = plan_sharding(cfgs, {'hot': 65536}, unique_fraction={'hot': 0.05})
   assert plans['hot'].sharded
   assert plans['hot'].strategy == 'alltoall'
+  assert plan_sharding(cfgs, {'hot': 8192}, unique_fraction={'hot': 0.05}
+                       )['hot'].strategy == 'allgather'
   # Without dedup headroom the allgather exchange wins instead.
   plans2 = plan_sharding(cfgs, {'hot': 8192}, unique_fraction={'hot': 1.0})
   assert plans2['hot'].strategy in ('allgather', 'alltoall')

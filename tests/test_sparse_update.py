@@ -193,77 +193,6 @@ class TestSparseTrainStep:
       assert len(t.sharding.device_set) == 8
 
 
-class TestStreamImpl:
-  """Pallas table-streaming update (interpret mode on the CPU mesh)."""
-
-  def test_stream_matches_xla_replicated(self):
-    cfg = TableConfig('t', VOCAB, DIM, sharded=False)
-    table = create_table(cfg, jax.random.PRNGKey(0))
-    state = init_adagrad_state(table, 0.1)
-    rng = np.random.RandomState(7)
-    ids = jnp.asarray(rng.randint(0, VOCAB, BATCH), jnp.int32)
-    demb = jnp.asarray(rng.randn(BATCH, DIM), jnp.float32)
-    t_x, s_x = sparse_adagrad_apply(table, state, ids, demb, cfg, 0.1,
-                                    impl='xla')
-    t_s, s_s = sparse_adagrad_apply(table, state, ids, demb, cfg, 0.1,
-                                    impl='stream')
-    np.testing.assert_allclose(np.asarray(t_s), np.asarray(t_x),
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(s_s.acc[0]),
-                               np.asarray(s_x.acc[0]), rtol=1e-4,
-                               atol=1e-5)
-
-  def test_stream_matches_xla_sharded(self):
-    cfg = TableConfig('t', VOCAB, DIM)
-    table = create_table(cfg, jax.random.PRNGKey(1))
-    state = init_adagrad_state(table, 0.1)
-    rng = np.random.RandomState(8)
-    ids = jnp.asarray(rng.randint(0, VOCAB, BATCH), jnp.int32)
-    demb = jnp.asarray(rng.randn(BATCH, DIM), jnp.float32)
-    t_x, s_x = sparse_adagrad_apply(table, state, ids, demb, cfg, 0.1,
-                                    impl='xla')
-    t_s, s_s = sparse_adagrad_apply(table, state, ids, demb, cfg, 0.1,
-                                    impl='stream')
-    np.testing.assert_allclose(np.asarray(t_s), np.asarray(t_x),
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(s_s.acc[0]),
-                               np.asarray(s_x.acc[0]), rtol=1e-4,
-                               atol=1e-5)
-    assert len(t_s.sharding.device_set) == 8
-
-  def test_stream_sgd_matches_xla(self):
-    for sharded in (True, False):
-      cfg = TableConfig('t', VOCAB, DIM, sharded=sharded)
-      table = create_table(cfg, jax.random.PRNGKey(2))
-      rng = np.random.RandomState(9)
-      ids = jnp.asarray(rng.randint(0, VOCAB, BATCH), jnp.int32)
-      demb = jnp.asarray(rng.randn(BATCH, DIM), jnp.float32)
-      t_x = sparse_sgd_apply(table, ids, demb, cfg, lr=0.5, impl='xla')
-      t_s = sparse_sgd_apply(table, ids, demb, cfg, lr=0.5, impl='stream')
-      np.testing.assert_allclose(np.asarray(t_s), np.asarray(t_x),
-                                 rtol=1e-4, atol=1e-5)
-
-  def test_stream_supports_traced_lr(self):
-    """Schedule-driven (traced) learning rates must work in the stream
-    impl (lr rides scalar prefetch, not a static closure)."""
-    cfg = TableConfig('t', VOCAB, DIM, sharded=False)
-    table = create_table(cfg, jax.random.PRNGKey(3))
-    state = init_adagrad_state(table, 0.1)
-    rng = np.random.RandomState(11)
-    ids = jnp.asarray(rng.randint(0, VOCAB, BATCH), jnp.int32)
-    demb = jnp.asarray(rng.randn(BATCH, DIM), jnp.float32)
-
-    @jax.jit
-    def step(table, state, lr):
-      return sparse_adagrad_apply(table, state, ids, demb, cfg, lr,
-                                  impl='stream')
-
-    t1, _ = step(table, state, jnp.float32(0.1))
-    t2, _ = sparse_adagrad_apply(table, state, ids, demb, cfg, 0.1,
-                                 impl='stream')
-    np.testing.assert_allclose(np.asarray(t1), np.asarray(t2), rtol=1e-6)
-
-
 class TestSparseAdam:
   """LazyAdam: moments decay only on touched rows."""
 
@@ -279,9 +208,8 @@ class TestSparseAdam:
       table[r] -= lr * (m[r] / bc1) / (np.sqrt(v[r] / bc2) + eps)
     return table, m, v
 
-  @pytest.mark.parametrize('impl', ['xla', 'stream'])
   @pytest.mark.parametrize('sharded', [True, False])
-  def test_matches_reference(self, impl, sharded):
+  def test_matches_reference(self, sharded):
     from hybridbackend_tpu.embedding.sparse_update import (
         init_adam_state, sparse_adam_apply)
     cfg = TableConfig('t', VOCAB, DIM, sharded=sharded)
@@ -292,7 +220,7 @@ class TestSparseAdam:
     demb = rng.randn(BATCH, DIM).astype(np.float32)
     got_t, got_s = sparse_adam_apply(
         table, state, jnp.asarray(ids, jnp.int32), jnp.asarray(demb),
-        cfg, lr=0.01, step=1, impl=impl)
+        cfg, lr=0.01, step=1)
     want_t, want_m, want_v = self._reference(
         np.asarray(table), np.zeros((VOCAB, DIM), np.float32),
         np.zeros((VOCAB, DIM), np.float32), ids, demb, 0.01, 1)
@@ -312,12 +240,11 @@ class TestSparseAdam:
     state = SparseOptState(acc=(m0, m0))
     ids = jnp.asarray([3] * BATCH, jnp.int32)
     demb = jnp.ones((BATCH, DIM))
-    for impl in ('xla', 'stream'):
-      _, s = sparse_adam_apply(table, state, ids, demb, cfg,
-                               lr=0.01, step=5, impl=impl)
-      m = np.asarray(s.acc[0])
-      assert (m[np.arange(VOCAB) != 3] == 1.0).all(), impl  # no decay
-      assert not np.allclose(m[3], 1.0), impl
+    _, s = sparse_adam_apply(table, state, ids, demb, cfg,
+                             lr=0.01, step=5)
+    m = np.asarray(s.acc[0])
+    assert (m[np.arange(VOCAB) != 3] == 1.0).all()  # no decay
+    assert not np.allclose(m[3], 1.0)
 
   def test_column_sharded(self):
     from hybridbackend_tpu.embedding.sparse_update import (
@@ -330,7 +257,7 @@ class TestSparseAdam:
     demb = rng.randn(BATCH, 32).astype(np.float32)
     got_t, _ = sparse_adam_apply(
         table, state, jnp.asarray(ids, jnp.int32), jnp.asarray(demb),
-        cfg, lr=0.01, step=1, impl='xla')
+        cfg, lr=0.01, step=1)
     want_t, _, _ = self._reference(
         np.asarray(table), np.zeros((VOCAB, 32), np.float32),
         np.zeros((VOCAB, 32), np.float32), ids, demb, 0.01, 1)
@@ -373,7 +300,7 @@ class TestSparseAdam:
 
   def test_adam_zero_total_rows_still_decay(self):
     """An id present with an exactly-zero gradient total must update
-    moments in BOTH impls (TF LazyAdam updates every indexed row)."""
+    its moments (TF LazyAdam updates every indexed row)."""
     from hybridbackend_tpu.embedding.sparse_update import (
         SparseOptState, sparse_adam_apply)
     cfg = TableConfig('t', VOCAB, DIM, sharded=False)
@@ -386,17 +313,16 @@ class TestSparseAdam:
     g[0] = 1.0
     g[1] = -1.0
     g[2:] = 0.5
-    for impl in ('xla', 'stream'):
-      _, s = sparse_adam_apply(table, state, ids, jnp.asarray(g), cfg,
-                               lr=0.01, step=3, impl=impl)
-      m = np.asarray(s.acc[0])
-      np.testing.assert_allclose(m[7], 0.9, rtol=1e-5,
-                                 err_msg=impl)  # decayed, zero grad
-      assert (m[np.arange(VOCAB)[(np.arange(VOCAB) != 7)
-                                 & (np.arange(VOCAB) != 3)]] == 1.0).all()
+    _, s = sparse_adam_apply(table, state, ids, jnp.asarray(g), cfg,
+                             lr=0.01, step=3)
+    m = np.asarray(s.acc[0])
+    np.testing.assert_allclose(m[7], 0.9, rtol=1e-5)  # decayed, zero grad
+    assert (m[np.arange(VOCAB)[(np.arange(VOCAB) != 7)
+                               & (np.arange(VOCAB) != 3)]] == 1.0).all()
 
   def test_bf16_tables_supported(self):
-    """bf16 table storage (half HBM traffic) works in both impls."""
+    """bf16 table storage (half HBM traffic) follows the f32 reference
+    within bf16 rounding."""
     cfg = TableConfig('t', VOCAB, DIM, dtype=jnp.bfloat16, sharded=False)
     table = create_table(cfg, jax.random.PRNGKey(6))
     assert table.dtype == jnp.bfloat16
@@ -404,13 +330,13 @@ class TestSparseAdam:
     rng = np.random.RandomState(15)
     ids = jnp.asarray(rng.randint(0, VOCAB, BATCH), jnp.int32)
     g = jnp.asarray(rng.randn(BATCH, DIM), jnp.float32)
-    outs = []
-    for impl in ('xla', 'stream'):
-      t2, _ = sparse_adagrad_apply(table, state, ids, g, cfg, 0.1,
-                                   impl=impl)
-      assert t2.dtype == jnp.bfloat16
-      outs.append(np.asarray(t2, dtype=np.float32))
-    np.testing.assert_allclose(outs[0], outs[1], rtol=2e-2, atol=1e-2)
+    t2, _ = sparse_adagrad_apply(table, state, ids, g, cfg, 0.1)
+    assert t2.dtype == jnp.bfloat16
+    want_t, _ = reference_adagrad(
+        np.asarray(table, np.float32), np.full((VOCAB, DIM), 0.1, np.float32),
+        np.asarray(ids), np.asarray(g), 0.1)
+    np.testing.assert_allclose(np.asarray(t2, np.float32), want_t,
+                               rtol=2e-2, atol=1e-2)
 
 
 class TestRawModelLoss:
@@ -605,7 +531,7 @@ class TestUpdateExchange:
     with hb.scope(emb_update_exchange='alltoall'):
       got_t, got_s = sparse_adagrad_apply(
           table, state, jnp.asarray(ids, jnp.int32), jnp.asarray(demb),
-          cfg, 0.1, dedup=False, impl='xla')
+          cfg, 0.1, dedup=False)
     want_a = np.full((VOCAB, DIM), 0.1, np.float32)
     want_t = np.asarray(table).copy()
     for i in range(BATCH):
@@ -631,8 +557,7 @@ class TestUpdateExchange:
     cap = _update_bucket_cap(batch // world, world)
     assert cap * world < batch  # the point: payload shrinks below [W*b]
     with hb.scope(emb_update_exchange='alltoall',
-                  emb_update_overflow_fallback=False,
-                  emb_update_impl='xla'):
+                  emb_update_overflow_fallback=False):
       hlo = jax.jit(
           lambda t, s, i, g: sparse_adagrad_apply(t, s, i, g, cfg, 0.1)
       ).lower(table, state, ids, demb).compile().as_text()
@@ -647,192 +572,6 @@ class TestUpdateExchange:
     bad = [l for l in hlo.splitlines()
            if 'all-gather' in l and re.search(big, l)]
     assert not bad, bad
-
-
-def test_matmul_precision_option():
-  """emb_update_matmul_precision='default' (bf16 MXU passes — 15%
-  faster on v5e) stays within bf16 tolerance of the exact path."""
-  import hybridbackend_tpu as hb
-  cfg = TableConfig('p', VOCAB, DIM, sharded=False)
-  table = create_table(cfg, jax.random.PRNGKey(0))
-  state = init_adagrad_state(table, 0.1)
-  rng = np.random.RandomState(0)
-  ids = jnp.asarray(rng.randint(0, VOCAB, BATCH), jnp.int32)
-  demb = jnp.asarray(rng.randn(BATCH, DIM).astype(np.float32))
-  with hb.scope(emb_update_impl='stream'):
-    t_hi, _ = sparse_adagrad_apply(table, state, ids, demb, cfg, 0.1)
-    with hb.scope(emb_update_matmul_precision='default'):
-      t_lo, _ = sparse_adagrad_apply(table, state, ids, demb, cfg, 0.1)
-  np.testing.assert_allclose(np.asarray(t_lo), np.asarray(t_hi),
-                             rtol=2e-2, atol=2e-3)
-
-
-def test_touched_blocks_auto_rule():
-  """Auto mode turns the sparse grid on exactly when updates < blocks
-  (cap = update count, overflow impossible) and never for dense-update
-  regimes like the flagship shapes."""
-  import hybridbackend_tpu as hb
-  from hybridbackend_tpu.embedding.sparse_update import (
-      _touched_blocks_auto)
-  # 4096 blocks of 1024 rows, 64 updates -> on with cap 64
-  assert _touched_blocks_auto(1 << 22, 64, None) == 64
-  # flagship-ish: 977 blocks, 133k updates -> off
-  assert _touched_blocks_auto(1_000_000, 133_000, None) == 0
-  with hb.scope(emb_update_touched_blocks=-1):
-    assert _touched_blocks_auto(1 << 22, 64, None) == 0
-  with hb.scope(emb_update_touched_blocks=7):
-    assert _touched_blocks_auto(1_000_000, 133_000, None) == 7
-
-
-def test_touched_blocks_auto_end_to_end():
-  """A big-vocab small-batch sparse update goes through the auto
-  sparse grid and matches the numpy reference."""
-  import hybridbackend_tpu as hb
-  cfg = TableConfig('tbig', 1 << 16, DIM, sharded=False)
-  table = create_table(cfg, jax.random.PRNGKey(0))
-  state = init_adagrad_state(table, 0.1)
-  rng = np.random.RandomState(2)
-  ids = rng.randint(0, 1 << 16, 24)
-  demb = rng.randn(24, DIM).astype(np.float32)
-  with hb.scope(emb_update_impl='stream'):
-    got_t, got_s = sparse_adagrad_apply(
-        table, state, jnp.asarray(ids, jnp.int32), jnp.asarray(demb),
-        cfg, 0.1)
-  want_t, want_a = reference_adagrad(
-      np.asarray(table), np.full((1 << 16, DIM), 0.1, np.float32),
-      ids, demb, 0.1)
-  np.testing.assert_allclose(np.asarray(got_t), want_t, rtol=1e-4,
-                             atol=1e-6)
-  np.testing.assert_allclose(np.asarray(got_s.acc[0]), want_a,
-                             rtol=1e-4, atol=1e-6)
-
-
-class TestSegmentSortedUpdate:
-  """Per-segment sorted stacked updates (``segments=``): K batched
-  argsorts of B replace one argsort of K·B on the replicated stream
-  path — must be numerically identical to the global-sort path."""
-
-  def _compare(self, ids2d, segments, vocab, seed=11):
-    import hybridbackend_tpu as hb
-    cfg = TableConfig('seg', vocab, DIM, sharded=False)
-    table = create_table(cfg, jax.random.PRNGKey(3))
-    state = init_adagrad_state(table, 0.1)
-    rng = np.random.RandomState(seed)
-    demb = jnp.asarray(
-        rng.randn(*ids2d.shape, DIM).astype(np.float32))
-    with hb.scope(emb_update_impl='stream'):
-      t_ref, s_ref = sparse_adagrad_apply(
-          table, state, ids2d, demb, cfg, 0.1)
-      t_seg, s_seg = sparse_adagrad_apply(
-          table, state, ids2d, demb, cfg, 0.1, segments=segments)
-    np.testing.assert_allclose(np.asarray(t_seg), np.asarray(t_ref),
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(s_seg.acc[0]),
-                               np.asarray(s_ref.acc[0]), rtol=1e-4,
-                               atol=1e-5)
-
-  def test_width1_segments_with_invalid_and_duplicates(self):
-    rng = np.random.RandomState(5)
-    k, seg_v = 3, VOCAB
-    cols = []
-    for t in range(k):
-      col = t * seg_v + rng.randint(0, seg_v, (BATCH, 1))
-      cols.append(col)
-    ids = np.concatenate(cols, axis=1)
-    ids[::7, 0] = -1                       # invalid holes mid-segment
-    ids[1, 1] = ids[2, 1]                  # duplicates
-    segments = tuple((t, t + 1, (t + 1) * seg_v) for t in range(k))
-    self._compare(jnp.asarray(ids, jnp.int32), segments, k * seg_v)
-
-  def test_multi_width_segments(self):
-    rng = np.random.RandomState(6)
-    seg_v = VOCAB
-    c0 = rng.randint(0, seg_v, (BATCH, 1))
-    c12 = seg_v + rng.randint(0, seg_v, (BATCH, 2))   # width-2 member
-    c3 = 2 * seg_v + rng.randint(0, seg_v, (BATCH, 1))
-    ids = np.concatenate([c0, c12, c3], axis=1)
-    ids[3, 2] = -1
-    segments = ((0, 1, seg_v), (1, 3, 2 * seg_v), (3, 4, 3 * seg_v))
-    self._compare(jnp.asarray(ids, jnp.int32), segments, 3 * seg_v)
-
-  def test_segment_sorted_contract(self):
-    """rows: -1 holes at invalid lanes; block_ids: globally
-    non-decreasing with holes mapped to the segment's row_hi."""
-    from hybridbackend_tpu.embedding.sparse_update import _segment_sorted
-    rng = np.random.RandomState(7)
-    seg_v = 16
-    ids = np.concatenate(
-        [t * seg_v + rng.randint(0, seg_v, (8, 1)) for t in range(3)],
-        axis=1)
-    ids[0, 0] = -1
-    ids[4, 2] = -1
-    segments = tuple((t, t + 1, (t + 1) * seg_v) for t in range(3))
-    g = jnp.asarray(rng.randn(8, 3, DIM).astype(np.float32))
-    rows, block_ids, gs = _segment_sorted(
-        jnp.asarray(ids, jnp.int32), g, segments)
-    bi = np.asarray(block_ids)
-    assert (np.diff(bi) >= 0).all(), bi
-    r = np.asarray(rows)
-    assert (r[bi == 16] == -1).sum() == 1    # seg-0 hole at its hi
-    assert (r >= -1).all() and (r[r >= 0] < 48).all()
-    # grads rode along with their ids
-    valid = r >= 0
-    assert np.asarray(gs).shape == (24, DIM)
-
-  def test_train_step_uses_segments_and_matches_xla(self):
-    """The sparse train step (which now passes segments=) must match
-    the XLA-update step exactly enough."""
-    import hybridbackend_tpu as hb
-    specs = [EmbeddingSpec(TableConfig(f't{i}', VOCAB, DIM,
-                                       sharded=False))
-             for i in range(3)]
-    fx = StackedFeatureExtractor(specs)
-    rng = np.random.RandomState(9)
-    batch = {f't{i}': jnp.asarray(
-        rng.randint(0, VOCAB, (BATCH,)), jnp.int32) for i in range(3)}
-    batch['label'] = jnp.asarray(rng.rand(BATCH).astype(np.float32))
-
-    def loss_fn(dense, feats, dense_feats, b):
-      pred = sum(f.sum(-1) for f in feats)
-      return jnp.mean((pred - b['label']) ** 2), {}
-
-    def make(impl):
-      with hb.scope(emb_update_impl=impl):
-        tables = fx.init(jax.random.PRNGKey(0))
-        opt = optax.sgd(0.01)
-        state = SparseTrainState.create({}, tables, opt)
-        step = make_sparse_train_step(fx, loss_fn, opt, table_lr=0.1)
-        out, _ = step(state, batch)
-      return out
-
-    s_stream = make('stream')
-    s_xla = make('xla')
-    for name in s_stream.tables:
-      np.testing.assert_allclose(
-          np.asarray(s_stream.tables[name]),
-          np.asarray(s_xla.tables[name]), rtol=1e-4, atol=1e-5)
-
-
-def test_stream_kwargs_touched_blocks_counts_streamed_blocks():
-  """The updates-vs-blocks auto crossover must count the blocks the
-  consuming kernel actually streams: add/adagrad lane-pack narrow
-  tables internally (packed block count), the LazyAdam kernel streams
-  unpacked (r3 self-review: adam lost the sparse grid in the
-  huge-vocab regime it serves)."""
-  import jax.numpy as jnp
-  from hybridbackend_tpu.embedding.sparse_update import _stream_kwargs
-
-  table = jnp.zeros((1_048_576, 16), jnp.float32)   # pack factor 8
-  # 2000 updates: unpacked blocks = 1024 (1M/1024) < 2000? No: 1024
-  # blocks < 2000 updates -> full stream for packed too. Pick counts
-  # between the two block counts: packed blocks = 128, unpacked = 1024.
-  rows = jnp.zeros((500,), jnp.int32)               # 128 < 500 < 1024
-  packed = _stream_kwargs(table, rows, packs=True)
-  unpacked = _stream_kwargs(table, rows, packs=False)
-  # Packed stream: 128 blocks < 500 updates -> sparse grid off.
-  assert 'touched_blocks' not in packed, packed
-  # Unpacked (adam) stream: 1024 blocks > 500 updates -> sparse grid on.
-  assert unpacked.get('touched_blocks') == 500, unpacked
 
 
 def test_bf16_table_storage_trains():
@@ -881,43 +620,3 @@ def test_adam_out_of_vocab_ids_do_not_decay_rows():
                              0.1, step=1)
   np.testing.assert_array_equal(np.asarray(t2), np.asarray(tbl))
   np.testing.assert_array_equal(np.asarray(s2.acc[0]), m0)
-
-def test_split_dense_update_bit_identical():
-  """The opt-in dense-split update (gsum kernel + XLA elementwise
-  apply) must match the fused stream kernel — same `_split_dots` row
-  totals, same f32 apply math. Bit-identical on a real TPU (verified
-  on one v5e chip); CPU interpret mode differs in the last ulp (host
-  FMA contraction of the sqrt/div chain), hence the 1e-7 tolerance
-  here. (Defaults off: measured slower on v5e, see stream_bw_probe /
-  docs/benchmarks.md.)"""
-  import hybridbackend_tpu as hb
-  cfg = TableConfig('wide', 2048, 128, sharded=False)
-  table = create_table(cfg, jax.random.PRNGKey(3))
-  state = init_adagrad_state(table, 0.1)
-  rng = np.random.RandomState(4)
-  ids = jnp.asarray(rng.randint(0, 2048, 512), jnp.int32)
-  demb = jnp.asarray(rng.randn(512, 128).astype(np.float32))
-  with hb.scope(emb_update_impl='stream', emb_update_touched_blocks=-1):
-    t_fused, s_fused = sparse_adagrad_apply(table, state, ids, demb,
-                                            cfg, 0.1)
-    with hb.scope(emb_update_split_dense='on'):
-      t_split, s_split = sparse_adagrad_apply(table, state, ids, demb,
-                                              cfg, 0.1)
-  np.testing.assert_allclose(np.asarray(t_split), np.asarray(t_fused),
-                             rtol=1e-6, atol=1e-7)
-  np.testing.assert_allclose(np.asarray(s_split.acc[0]),
-                             np.asarray(s_fused.acc[0]),
-                             rtol=1e-6, atol=1e-7)
-
-
-def test_split_dense_auto_requires_lane_width():
-  """'auto' must never engage for narrow physical rows or when the
-  touched-blocks sparse grid is active."""
-  from hybridbackend_tpu.embedding.sparse_update import _split_dense
-  import hybridbackend_tpu as hb
-  wide = jnp.zeros((64, 128))
-  with hb.scope(emb_update_split_dense='auto'):
-    assert _split_dense(wide, {})
-    assert not _split_dense(wide, {'touched_blocks': 8})
-    assert not _split_dense(jnp.zeros((64, 16)), {})
-  assert not _split_dense(wide, {})  # default off

@@ -51,8 +51,8 @@ def test_hlo_bf16_allreduce():
   operates on bf16 operands; without it, no bf16 reduction exists.
 
   Asserted on the LOWERED (pre-backend-optimization) module: the CPU
-  backend legalizes bf16 collectives by upcasting around them, while TPU
-  executes them natively — the portable property is what the program
+  backend legalizes bf16 collectives by upcasting around them, while
+  other backends may execute them natively — the portable property is what the program
   requests on the wire."""
   ctx = Context.get()
   opt = optax.sgd(0.1)
